@@ -8,9 +8,11 @@ Phases (any failure raises, and the script exits non-zero):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile csrc/chain_sweep.cu with nvcc, print the seconds
   3. kernel   the chain-sweep kernel against its plain PyTorch version on
-              the card at nine (chains, steps, m, k) shapes, both sweep
-              directions, tolerance 1e-4 of the reference's max; times
-              beside the HBM bound and the plain version's time
+              the card at ten (chains, steps, m, k) shapes, both sweep
+              directions, factors in the padded layout the kernel streams
+              (`sweep_factors`), tolerance 1e-4 of the reference's max;
+              times beside the HBM bound and the plain version's time, with
+              the launch plan (cluster size, ring depth)
   4. weekly   `run_pricetaker` (wind+battery+PEM, T=168, three H2 prices)
               on the dense IPM; NPV within 1e-3 of HiGHS
   5. year     `run_year_sweep(scenarios=8, batch=8, hours=8760)`: mixed
@@ -36,11 +38,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 # (chains, steps, m, k): three small ones, a year batch of 8 lanes as one
 # chain each, and the shapes the year sweep's 5 SPIKE slabs give the
-# kernel: 8 x 5 interior chains of 72 steps and 8 interface chains of 5
+# kernel: 8 x 5 interior chains of 72 steps and 8 interface chains of 5;
+# last, m > 256, where the forward sweep's rows take two TMA boxes
 KERNEL_SHAPES = [
     (1, 12, 17, 1), (4, 6, 33, 3), (2, 5, 9, 18),
     (8, 365, 241, 1), (8, 365, 241, 3),
     (40, 72, 241, 1), (40, 72, 241, 3), (8, 5, 241, 1), (8, 5, 241, 3),
+    (3, 7, 300, 2),
 ]
 MAIN_SHAPE = (40, 72, 241, 1)  # the year sweep's interior chains, k = 1 solves
 TOL = 1e-4
@@ -74,7 +78,8 @@ def phase_build():
 
 def _chains(D, S, m, gen):
     """Random SPD block-tridiagonal chains factored by the port's
-    `_block_chol(inv=True)` in f32 on the card."""
+    `_block_chol(inv=True)` in f32 on the card, in the kernel's layout."""
+    from dispatches_tpu_torch.solvers.chain_sweep import sweep_factors
     from dispatches_tpu_torch.solvers.structured import _block_chol
 
     kw = dict(device="cuda", dtype=torch.float32, generator=gen)
@@ -82,7 +87,7 @@ def _chains(D, S, m, gen):
     Ds = M1 @ M1.transpose(-1, -2) + m * torch.eye(m, device="cuda")
     Es = 0.3 * torch.randn(D, S, m, m, **kw)
     Es[:, 0] = 0.0
-    return _block_chol(Ds, Es, inv=True)
+    return tuple(sweep_factors(a) for a in _block_chol(Ds, Es, inv=True))
 
 
 def _time_ms(fn, reps):
@@ -97,13 +102,21 @@ def _time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def sweep_bytes(D, S, m, k):
+    """Bytes one sweep must move: the 2S - 1 factor blocks of each chain it
+    reads (neither direction needs C_0: forward skips it at the chain's
+    start, backward reads C_1..C_{S-1}), R read once, the output written
+    once."""
+    return 4 * ((2 * S - 1) * D * m * m + 2 * D * S * m * k)
+
+
 def bound_ms(D, S, m, k):
-    """Least time of one sweep: each input read once (J, C, R), the output
-    written once, at the HBM rate; or its 4*D*S*m^2*k flops at the f32
+    """Least time of one sweep: `sweep_bytes` at the HBM rate, or its
+    2*(2S-1)*D*m^2*k flops (a product with each block read) at the f32
     rate; the larger."""
-    bytes_ = 4 * (2 * D * S * m * m + 2 * D * S * m * k)
-    flops = 4 * D * S * m * m * k
-    b, f = bytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    flops = 2 * (2 * S - 1) * D * m * m * k
+    b = sweep_bytes(D, S, m, k) / HBM_BYTES_PER_S * 1e3
+    f = flops / F32_FLOPS_PER_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
 
 
@@ -119,11 +132,12 @@ def _warm_up(seconds=3.0):
 
 
 def phase_kernel():
+    from dispatches_tpu_torch.solvers import chain_sweep as cs
     from dispatches_tpu_torch.solvers.chain_sweep import _sweep_plain, chain_sweep
 
     _warm_up()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_err, main = [], 0.0, None
+    rows, max_err, main = [], 0.0, {}
     for D, S, m, k in KERNEL_SHAPES:
         J, C = _chains(D, S, m, gen)
         R = torch.randn(D, S, m, k, device="cuda", generator=gen)
@@ -145,13 +159,17 @@ def phase_kernel():
             ms = _time_ms(lambda: chain_sweep(J, C, R, reverse=reverse), reps)
             plain_ms = _time_ms(lambda: _sweep_plain(J, C, R, reverse), max(3, reps // 10))
             bms, by = bound_ms(D, S, m, k)
+            plan = cs._device_plan(D, S, m, k, reverse, cs._library())
             row = dict(shape=[D, S, m, k], reverse=reverse, max_abs_err=err,
                        ref_max=scale, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, GB_per_s=4 * 2 * D * S * m * m / ms / 1e6)
+                       bound_by=by, share_of_bound=bms / ms,
+                       GB_per_s=sweep_bytes(D, S, m, k) / ms / 1e6,
+                       cluster=plan.cluster, width=plan.width, stages=plan.stages,
+                       stage_rows=plan.stage_rows, smem_bytes=plan.smem_bytes)
             rows.append(row)
             log("[kernel] " + json.dumps(row))
-            if (D, S, m, k) == MAIN_SHAPE and not reverse:
-                main = row
+            if (D, S, m, k) == MAIN_SHAPE:
+                main["backward" if reverse else "forward"] = row
     log("[kernel] library_ms: null — no single PyTorch call computes a "
         "block-bidiagonal recurrence")
     return rows, max_err, main
@@ -299,7 +317,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     phase_device()
     phase_build()
-    kernel_rows, max_err, main_row = phase_kernel() if "kernel" in phases else ([], None, None)
+    kernel_rows, max_err, main = phase_kernel() if "kernel" in phases else ([], None, {})
     if "weekly" in phases:
         phase_weekly()
     year = phase_year() if "year" in phases else {}
@@ -311,11 +329,18 @@ def main(argv=None):
         "replaces": "dispatches_tpu/solvers/pallas_sweep.py:87",
         "launches": year.get("launches"),
         "max_abs_err": max_err,
-        "ms": main_row and main_row["ms"],
-        "plain_ms": main_row and main_row["plain_ms"],
-        "bound_ms": main_row and main_row["bound_ms"],
-        "bound_by": main_row and main_row["bound_by"],
+        # the forward sweep at MAIN_SHAPE; both directions under "directions"
+        "ms": main.get("forward", {}).get("ms"),
+        "plain_ms": main.get("forward", {}).get("plain_ms"),
+        "bound_ms": main.get("forward", {}).get("bound_ms"),
+        "bound_by": main.get("forward", {}).get("bound_by"),
         "library_ms": None,
+        "shape": list(MAIN_SHAPE),
+        "directions": {
+            d: {key: row[key] for key in ("ms", "plain_ms", "bound_ms", "share_of_bound",
+                                          "cluster", "stages")}
+            for d, row in main.items()
+        },
     }
     print(json.dumps({"kernels": [rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.program import CompiledLP, LPData, _ParamSource, _scatter_add
-from .chain_sweep import chain_solve
+from .chain_sweep import chain_solve, sweep_factors
 from .ipm import (
     _broadcast_batch,
     _chol,
@@ -575,7 +575,12 @@ def _banded_ops(
         Ds = Ds + torch.diag_embed(diag_vec.to(fd))
         Es = AsW @ Ad_prev_c.transpose(-1, -2)
         if slabs:
-            fac = _SlabFactors(*(a.to(cd) for a in _slab_chol(Ds, Es, slabs, inv=inv)))
+            raw = _slab_chol(Ds, Es, slabs, inv=inv)
+            swept = ("Ls_int", "Cs_int", "Ls_schur", "Cs_schur") if use_fused else ()
+            fac = _SlabFactors(*(
+                sweep_factors(a, cd) if name in swept else a.to(cd)
+                for name, a in zip(raw._fields, raw)
+            ))
             if use_fused:
                 def chain_int(rr):
                     return chain_solve(fac.Ls_int, fac.Cs_int, rr)
@@ -591,7 +596,8 @@ def _banded_ops(
                     chain_int=chain_int, chain_schur=chain_schur,
                 ).to(dtype)
         else:
-            Ls, Cs = (a.to(cd) for a in _block_chol(Ds, Es, inv=inv))
+            cast = sweep_factors if use_fused else torch.Tensor.to
+            Ls, Cs = (cast(a, cd) for a in _block_chol(Ds, Es, inv=inv))
             if use_fused:
                 def chol_base(rt):
                     return chain_solve(Ls, Cs, rt.to(cd)).to(dtype)
