@@ -22,6 +22,36 @@ Phases (any failure raises, and the script exits non-zero):
               one scenario's NPV within 1e-3 of HiGHS, kernel launches > 0,
               wall seconds, iterations, peak memory, and the kernel's share
               of a profiled window of the same solve
+  6. grad     design gradients through the LP solves:
+              (a) weekly design (T=168, `build_pricetaker_design`):
+                  `optimal_value` gradients in batt_kw, pem_kw, h2_price
+                  against central differences (rel 1e-4, abs 1e-3), and the
+                  adjoint path (`optimal_solution`) against the envelope
+                  (rel 1e-3);
+              (b) year value and LMP gradient (`optimal_value_banded`, 8
+                  lanes x 8,760 h at the year phase's seed-0 scales and
+                  solver options): every lane converged, its primal
+                  objective x 1e5 within 1e-6 and its value (the
+                  Lagrangian) x 1e5 within YEAR_VALUE_RTOL of the lane's
+                  year-phase NPV, finite gradient, kernel launches > 0;
+                  wall time beside the year phase's batch seconds, the
+                  difference as the gradient's overhead, peak memory;
+              (c) the gradient's LMP slope g . lmp_base = dV/ds: within
+                  1e-9 (of |slope| + |V|) of the NPV's LMP term over s at
+                  the solve's own x on every lane, and within rel 1e-4 of
+                  the same at HiGHS's x
+                  on lane 0; then the subgradient bracket: lanes 0-3 of
+                  (b) re-solved at s(1 +- 1e-3) in one batch of 8, and
+                  g . lmp_base lies between the one-sided slopes of V(s)
+                  (convex in s) widened by 1e-4 of its magnitude, the
+                  slopes taken as wide as the solves' own duality gaps
+                  allow (`bracket_bounds`);
+              (d) `run_battery_ratio_sweep` (168 h, 3 x 3 grid) with a
+                  ResultStore in a temporary directory: every point
+                  converged, and a second run solves none.
+              Without the year phase, grad runs the year phase's sweep
+              itself (solve only) for the NPVs and batch seconds of (b),
+              and HiGHS on scenario 0 for (c).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -29,6 +59,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -305,13 +336,274 @@ def phase_year(scenarios=8, batch=8, hours=8760):
     return dict(scenarios=len(recs), wall_s=wall, batch_seconds=batch_s,
                 mean_iterations=float(np.mean(iters)), peak_bytes=peak,
                 launches=launches, rel_vs_highs=rel, kernel_share=share,
-                device_busy=busy, window_s=window)
+                device_busy=busy, window_s=window, records=recs, highs_x=res.x)
+
+
+GRAD_SIZES = ("batt_kw", "pem_kw", "h2_price")
+BRACKET_EPS = 1e-3  # relative step of the LMP scale in the bracket of (c)
+# (b): the solve's primal objective is the year phase's NPV (the same LP
+# and options): rel 1e-6. The Lagrangian value is the dual side of that
+# optimum; it differs from the NPV by the lane's duality gap, which tol
+# (1e-8) bounds in the solver's scaled units only (CPU, this LP: rel 3e-7
+# at T=240, 1.3e-6 at 720, 4.1e-6 at 2400; 7.75e-6 at 8,760 h on the
+# H100), so it is held to YEAR_VALUE_RTOL, about 4x the largest reading
+YEAR_PRIMAL_RTOL = 1e-6
+YEAR_VALUE_RTOL = 3e-5
+# (c): g . lmp_base against the LMP slope of the solve's own x (the same
+# number by the envelope theorem, as NPV is affine in the LMPs) and of
+# HiGHS's x for lane 0 (an independent solver; CPU at T=720: rel <= 1.8e-6)
+SLOPE_X_RTOL = 1e-9
+SLOPE_HIGHS_RTOL = 1e-4
+
+
+def duality_gap(prog, sol):
+    """Per lane, sum of zl (x - l) + zu (u - x) over the finite bounds: the
+    gap between the primal objective of `sol` and its dual objective, in
+    the units of ``sol.obj`` (the residuals, ~1e-13 here, aside)."""
+    lb = torch.as_tensor(prog.lb, dtype=sol.x.dtype, device=sol.x.device)
+    ub = torch.as_tensor(prog.ub, dtype=sol.x.dtype, device=sol.x.device)
+    comp = (torch.where(torch.isfinite(lb), sol.zl * (sol.x - lb), 0.0)
+            + torch.where(torch.isfinite(ub), sol.zu * (ub - sol.x), 0.0))
+    return comp.sum(-1)
+
+
+def bracket_bounds(center, minus, plus, step):
+    """The widest one-sided slopes the solves allow. `center`, `minus` and
+    `plus` are intervals (lo, hi) that hold the optimal value V at s,
+    s - step and s + step (the primal value of a solve and that value
+    moved by its duality gap: V lies between a primal and a dual
+    objective). Returns (lowest left slope, highest right slope)."""
+    return (center[0] - minus[1]) / step, (plus[1] - center[0]) / step
+
+
+def lmp_slope(prog, x, base_lmp, scales, cf):
+    """dV/ds of the design objective (NPV x 1e-5) at the point `x` for LMPs
+    s * base_lmp: the NPV's LMP term over s, as the NPV is affine in the
+    LMPs. Batched over a leading axis of `x` and `scales`."""
+    s = np.asarray(scales, np.float64)
+    x = torch.as_tensor(x, dtype=torch.float64).cpu()
+
+    def npv(lmp):
+        return prog.eval_expr("NPV", x, {"lmp": lmp, "wind_cf": cf}).numpy()
+
+    lmp = s[..., None] * base_lmp
+    return 1e-5 * (npv(lmp) - npv(0.0 * lmp)) / s
+
+
+def _grad_weekly():
+    """(a): weekly design gradients against central differences, and the
+    adjoint path against the envelope, on the card."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker_design,
+    )
+    from dispatches_tpu_torch.solvers.diff import optimal_solution, optimal_value
+
+    hours, kw = 168, dict(tol=1e-9, max_iter=60)
+    prog, _ = build_pricetaker_design(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, h2_price_per_kg=2.5,
+        initial_soc_fixed=None,
+    ))
+    data = P.load_rts303()
+    base = {"lmp": data["da_lmp"][:hours], "wind_cf": data["da_wind_cf"][:hours],
+            "batt_kw": 5000.0, "pem_kw": 1e5, "h2_price": 2.5}
+
+    def on_card(params, grad=()):
+        return {k: torch.tensor(np.asarray(v, np.float64), device="cuda",
+                                requires_grad=k in grad) for k, v in params.items()}
+
+    def npv(params):
+        return optimal_value(prog, params, device="cuda", **kw) * 1e5
+
+    t0 = time.perf_counter()
+    p = on_card(base, GRAD_SIZES)
+    v = npv(p)
+    g = [float(x) for x in torch.autograd.grad(v, [p[k] for k in GRAD_SIZES])]
+    env_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, gi, h in zip(GRAD_SIZES, g, (1.0, 10.0, 1e-4)):
+        with torch.no_grad():
+            fd = (float(npv(on_card({**base, name: base[name] + h})))
+                  - float(npv(on_card({**base, name: base[name] - h})))) / (2 * h)
+        err = abs(gi - fd)
+        worst = max(worst, err / abs(fd))
+        log(f"[grad] (a) d NPV / d {name}: {gi:.9e} central difference (h={h}) "
+            f"{fd:.9e} rel {err / abs(fd):.2e}")
+        if not err <= max(1e-4 * abs(fd), 1e-3):
+            raise AssertionError(f"weekly gradient in {name}: {gi} vs central difference {fd}")
+    q = on_card(base, ("h2_price",))
+    sol = optimal_solution(prog, q, device="cuda", **kw)
+    if not bool(sol.converged):
+        raise AssertionError("weekly design solve not converged")
+    g_sol = float(torch.autograd.grad(prog.eval_expr("NPV", sol.x, q), q["h2_price"])[0])
+    rel_adj = abs(g_sol - g[2]) / abs(g[2])
+    log(f"[grad] (a) adjoint path d NPV / d h2_price {g_sol:.9e}, envelope {g[2]:.9e}, "
+        f"rel {rel_adj:.2e}; value + gradient {env_s:.2f} s")
+    if not rel_adj <= 1e-3:
+        raise AssertionError(f"adjoint-path gradient rel {rel_adj:.2e} > 1e-3 of the envelope")
+    return dict(npv=float(v.detach()), grads=dict(zip(GRAD_SIZES, g)), worst_rel_vs_fd=worst,
+                adjoint_rel=rel_adj, value_grad_s=env_s)
+
+
+def phase_grad(year_records=None, highs_x=None, n=8, hours=8760):
+    """The `grad` phase (see the module docstring), on the card.
+    `year_records` and `highs_x` are the year phase's records and its
+    HiGHS solution of scenario 0; the phase computes them when absent."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.runtime.native import ResultStore
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+    from dispatches_tpu_torch.solvers.structured import (
+        extract_time_structure, optimal_value_banded, solve_lp_banded_batch,
+    )
+    from dispatches_tpu_torch.workflow.runners import (
+        run_battery_ratio_sweep, run_year_sweep, year_sweep_solver_kw,
+    )
+
+    weekly = _grad_weekly()
+
+    # (b) year value and gradient over the year phase's lanes
+    if year_records is None:
+        log("[grad] the year phase did not run: solving its batch here (solve only)")
+        year_records = run_year_sweep(scenarios=n, batch=n, hours=hours, device="cuda")
+    if not all(r["converged"] for r in year_records):
+        raise AssertionError("the year batch has unconverged lanes: no envelope gradient there")
+    npvs = np.array([r["NPV"] for r in year_records])
+    scales = np.array([r["lmp_scale"] for r in year_records])
+    batch_s = year_records[0]["batch_seconds"]
+    data = P.load_rts303()
+    prog, _ = build_pricetaker(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    meta = extract_time_structure(prog, hours, block_hours=24)
+    base_lmp = np.resize(data["da_lmp"], hours)
+    cf = np.resize(data["da_wind_cf"], hours)
+    kw = year_sweep_solver_kw(torch.float64, Tb=meta.Tb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chain_sweep.launches = 0
+    t0 = time.perf_counter()
+    lmps = torch.tensor(scales[:, None] * base_lmp[None], device="cuda", requires_grad=True)
+    v, sol_b = optimal_value_banded(meta, {"lmp": lmps, "wind_cf": cf}, device="cuda",
+                                    return_solution=True, **kw)
+    g, = torch.autograd.grad(v.sum(), lmps)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = chain_sweep.launches
+    peak_b = torch.cuda.max_memory_allocated()
+    v = v.detach().cpu().numpy()
+    rel_v = np.abs(v * 1e5 - npvs) / np.abs(npvs)
+    primal = (prog.obj_sense * sol_b.obj).cpu().numpy()
+    rel_p = np.abs(primal * 1e5 - npvs) / np.abs(npvs)
+    log(f"[grad] (b) year value + LMP gradient, {n} lanes x {hours} h: wall {wall_b:.2f} s "
+        f"(year batch solve {batch_s:.2f} s; gradient overhead {wall_b - batch_s:.2f} s), "
+        f"peak memory {peak_b / 2**30:.2f} GiB, chain_sweep launches {launches_b}, "
+        f"iterations {sol_b.iterations.tolist()}, vs year NPV rel max: value x 1e5 "
+        f"{rel_v.max():.2e}, primal objective x 1e5 {rel_p.max():.2e}")
+    if launches_b <= 0:
+        raise AssertionError("the year gradient solve launched no chain_sweep kernel")
+    if not bool(sol_b.converged.all()):
+        raise AssertionError(f"year gradient lanes not converged: {sol_b.converged.tolist()}")
+    if not np.all(rel_p <= YEAR_PRIMAL_RTOL):
+        raise AssertionError(
+            f"year primal objective x 1e5 vs year-phase NPV rel {rel_p} > {YEAR_PRIMAL_RTOL}")
+    if not np.all(rel_v <= YEAR_VALUE_RTOL):
+        raise AssertionError(
+            f"year value x 1e5 vs year-phase NPV rel {rel_v} > {YEAR_VALUE_RTOL}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite year LMP gradient")
+    d = (g.double() @ torch.as_tensor(base_lmp, device="cuda")).cpu().numpy()
+    d_x = lmp_slope(prog, sol_b.x, base_lmp, scales, cf)
+    # relative to |d_x| + |V|: lmp_slope's difference of two NPVs rounds
+    # at the NPV's scale, which matters on a lane that sells next to nothing
+    rel_x = np.abs(d - d_x) / (np.abs(d_x) + np.abs(v))
+    if highs_x is None:
+        log("[grad] the year phase did not run: solving scenario 0 with HiGHS here")
+        highs_x = solve_lp_scipy_sparse(prog, {"lmp": scales[0] * base_lmp, "wind_cf": cf}).x
+    d_h = float(lmp_slope(prog, highs_x, base_lmp, scales[0], cf))
+    rel_h = abs(d[0] - d_h) / abs(d_h)
+    log(f"[grad] (c) g . lmp_base {d.tolist()}; vs the LMP slope at the solve's x rel max "
+        f"{rel_x.max():.2e}; lane 0 vs the slope at HiGHS's x {d_h:.9e} rel {rel_h:.2e}")
+    if not np.all(rel_x <= SLOPE_X_RTOL):
+        raise AssertionError(f"g . lmp vs the LMP slope at the solve's x: rel {rel_x}")
+    if not rel_h <= SLOPE_HIGHS_RTOL:
+        raise AssertionError(f"lane 0 g . lmp {d[0]} vs the slope at HiGHS's x {d_h}")
+
+    # (c) subgradient bracket: V(s) is convex in the LMP scale s
+    k4 = min(4, n)
+    s_pm = np.repeat(scales[:k4], 2) * np.tile([1 - BRACKET_EPS, 1 + BRACKET_EPS], k4)
+    blp = meta.instantiate({"lmp": s_pm[:, None] * base_lmp[None], "wind_cf": cf},
+                           device="cuda")
+    chain_sweep.launches = 0
+    t1 = time.perf_counter()
+    sol = solve_lp_banded_batch(meta, blp, **kw)
+    V_pm = (prog.obj_sense * sol.obj).cpu().numpy()
+    wall_c = time.perf_counter() - t1
+    launches_c = chain_sweep.launches
+    if not bool(sol.converged.all()):
+        raise AssertionError(f"bracket lanes not converged: {sol.converged.tolist()}")
+    gap_pm = duality_gap(prog, sol).cpu().numpy()
+    brackets = []
+    for k in range(k4):
+        step = scales[k] * BRACKET_EPS
+        # point slopes from (b)'s value at s_k, as the bracket is stated ...
+        left, right = (v[k] - V_pm[2 * k]) / step, (V_pm[2 * k + 1] - v[k]) / step
+        # ... and the widest the solves allow: V(s_k) lies between the year
+        # NPV (primal) and (b)'s Lagrangian (dual), V(s_k(1 +- eps)) within
+        # each solve's duality gap of its primal value
+        p_k = npvs[k] * 1e-5
+        center = (min(p_k, v[k]), max(p_k, v[k]))
+        lo, hi = bracket_bounds(
+            center,
+            (V_pm[2 * k] - gap_pm[2 * k], V_pm[2 * k] + gap_pm[2 * k]),
+            (V_pm[2 * k + 1] - gap_pm[2 * k + 1], V_pm[2 * k + 1] + gap_pm[2 * k + 1]),
+            step,
+        )
+        slack = 1e-4 * abs(d[k])
+        ok = lo - slack <= d[k] <= hi + slack
+        brackets.append(dict(scale=scales[k], left=left, g_dot_lmp=d[k], right=right,
+                             lowest_left=lo, highest_right=hi, slack=slack,
+                             gaps=[float(v[k] - p_k), float(gap_pm[2 * k]),
+                                   float(gap_pm[2 * k + 1])], ok=bool(ok)))
+        log(f"[grad] (c) lane {k} s={scales[k]:.4f}: left {left:.6e}, g.lmp {d[k]:.6e}, "
+            f"right {right:.6e}; bounds from the duality gaps [{lo:.6e}, {hi:.6e}] "
+            f"+- {slack:.3e} {'ok' if ok else 'FAILS'}")
+    log(f"[grad] (c) bracket batch of {2 * k4}: {wall_c:.2f} s, chain_sweep launches {launches_c}")
+    if not all(b["ok"] for b in brackets):
+        raise AssertionError("a year LMP gradient lies outside its subgradient bracket")
+
+    # (d) battery sweep with a checkpoint store
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"{tmp}/battsweep.bin"
+        t2 = time.perf_counter()
+        recs = run_battery_ratio_sweep(hours=168, store_path=store, device="cuda")
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t2
+        stored = len(ResultStore(store).keys())
+        again = run_battery_ratio_sweep(hours=168, store_path=store, device="cuda")
+    log(f"[grad] (d) battery sweep: {len(recs)} points in {wall_d:.2f} s, "
+        f"{stored} stored, resumed run solved {len(again)}")
+    if not (len(recs) == 9 and all(r["converged"] for r in recs)):
+        raise AssertionError(f"battery sweep not converged: {[r['converged'] for r in recs]}")
+    if stored != 9 or again:
+        raise AssertionError(f"battery sweep resume: {stored} stored, {len(again)} re-solved")
+    return dict(weekly=weekly, wall_s=wall_b, batch_seconds=batch_s,
+                overhead_s=wall_b - batch_s, peak_bytes=peak_b, launches=launches_b,
+                rel_value_max=float(rel_v.max()), rel_primal_max=float(rel_p.max()),
+                slope_x_rel_max=float(rel_x.max()), slope_highs_rel=rel_h, brackets=brackets,
+                bracket_wall_s=wall_c, bracket_launches=launches_c,
+                battsweep_wall_s=wall_d)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,weekly,year",
-                    help="comma list of kernel, weekly, year (device and build always run)")
+    ap.add_argument("--phases", default="kernel,weekly,year,grad",
+                    help="comma list of kernel, weekly, year, grad (device and build "
+                    "always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -321,13 +613,18 @@ def main(argv=None):
     if "weekly" in phases:
         phase_weekly()
     year = phase_year() if "year" in phases else {}
+    grad = phase_grad(year.get("records"), year.get("highs_x")) if "grad" in phases else {}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
         "route": "cuda",
         "source": "dispatches_tpu_torch/csrc/chain_sweep.cu",
         "replaces": "dispatches_tpu/solvers/pallas_sweep.py:87",
-        "launches": year.get("launches"),
+        # the year phase's launches; each path's under "launches_by_path"
+        "launches": year.get("launches", grad.get("launches")),
+        "launches_by_path": {"year": year.get("launches"),
+                             "grad_year": grad.get("launches"),
+                             "grad_bracket": grad.get("bracket_launches")},
         "max_abs_err": max_err,
         # the forward sweep at MAIN_SHAPE; both directions under "directions"
         "ms": main.get("forward", {}).get("ms"),

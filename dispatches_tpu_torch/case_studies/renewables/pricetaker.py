@@ -235,6 +235,37 @@ def build_pricetaker(design: HybridDesign):
     return m.build(), units
 
 
+def build_pricetaker_design(design: HybridDesign):
+    """Parametric-design build for gradient-based sizing (solvers/diff.py).
+
+    Each design size stays an LP variable but is *tied* to a named parameter
+    by an equality constraint, and the H2 price becomes a parameter, so
+    autograd of the optimal NPV w.r.t. ``(h2_price, capacities)`` flows
+    through `instantiate` and the differentiable solve, in place of the
+    reference's gradient-free rebuild-and-resolve design sweep
+    (`wind_battery_LMP.py:172-267`).
+
+    Extra params (beyond lmp/wind_cf): ``batt_kw``, ``pem_kw``, ``tank_mol``,
+    ``turb_kw``, ``wind_kw`` (only when not extant), ``h2_price``, present
+    for the units the topology includes. Returns (CompiledLP, units).
+    """
+    d = dataclasses.replace(design, design_opt=True)
+    m, units = build_hybrid(d)
+    if "battery" in units:
+        m.add_eq(units["battery"].nameplate_power - m.param("batt_kw"))
+    if "pem" in units:
+        m.add_eq(units["pem_cap"] - m.param("pem_kw"))
+    if "tank" in units and units["tank"].tank_size is not None:
+        m.add_eq(units["tank"].tank_size - m.param("tank_mol"))
+    if "turbine" in units:
+        m.add_eq(units["turbine"].system_capacity - m.param("turb_kw"))
+    if not d.extant_wind:
+        m.add_eq(units["re"].system_capacity - m.param("wind_kw"))
+    h2p = m.param("h2_price") if "pem" in units else None
+    _npv_objective(m, units, d, d.T, h2_price=h2p)
+    return m.build(), units
+
+
 def wind_battery_optimize(
     n_time_points: int,
     lmps: np.ndarray,

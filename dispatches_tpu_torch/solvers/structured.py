@@ -861,3 +861,82 @@ def solve_lp_banded_batch(
     opts = _options(meta, blp.Ad.dtype, warm_start=warm_start, **kw)
     out = _solve_banded(meta, blpb, **opts)
     return out if opts["trace"] else out[0]
+
+
+def optimal_value_banded(
+    meta: TimeStructure, params: Dict, dtype=torch.float64, device="cuda",
+    return_solution: bool = False, **solver_kw,
+):
+    """Differentiable optimal value at year scale, in the model's sense: the
+    banded analogue of `solvers/diff.optimal_value` (year-horizon sweeps
+    WITH design gradients, where the reference re-solves per design point,
+    `wind_battery_LMP.py:172-267`).
+
+    Envelope theorem through the LAGRANGIAN: with the optimum (x*, y*, zl*,
+    zu*) detached, ``L(theta) = c.x* + c0 + y*.(b - A x*) + zl*.(l - x*) +
+    zu*.(x* - u)`` has ``dL/dtheta = dV/dtheta`` at the saddle point, so
+    one extra O(nnz) evaluation through the same `instantiate` prices the
+    design against any parameter (LMP scenarios, CFs), with no adjoint
+    solve. The solve itself runs on detached tensors under ``no_grad``, so
+    autograd records none of its iterations.
+
+    Batch-first: parameters with a leading scenario axis (``lmp`` of shape
+    (B, T)) give values of shape (B,), solved in one `solve_lp_banded_batch`
+    call; the lanes are independent, so ``autograd.grad(v.sum(), lmp)``
+    gives per-lane gradients. `solver_kw` passes straight to the solve
+    (e.g. `workflow.runners.year_sweep_solver_kw`). With
+    ``return_solution=True`` the result is ``(value, sol)``, ``sol`` the
+    solve's `IPMSolution`: the envelope gradient is exact only where
+    ``sol.converged`` holds."""
+    blp0 = meta.instantiate(params, dtype=dtype, device=device)
+    with torch.no_grad():
+        sol = solve_lp_banded_batch(meta, BandedLP(*(a.detach() for a in blp0)), **solver_kw)
+    Tb, mB, nB, p = meta.Tb, meta.mB, meta.nB, meta.p
+    nt = Tb * nB
+    lead = tuple(sol.x.shape[:-1])
+    col_pos = torch.as_tensor(meta.col_pos, device=blp0.Ad.device)
+
+    def scatter(v_red):
+        out = torch.zeros(*lead, nt + p, dtype=dtype, device=v_red.device)
+        out[..., col_pos] = v_red.to(dtype)
+        return out
+
+    x_flat, zl_flat, zu_flat = scatter(sol.x), scatter(sol.zl), scatter(sol.zu)
+    yt = sol.y.reshape(*lead, Tb, mB).to(dtype)
+    Ad, As, Bb, b, c, cb, lt, ut, lb, ub, c0 = blp0
+    xt = x_flat[..., :nt].reshape(*lead, Tb, nB)
+    xb = x_flat[..., nt:]
+    # unbatched Ad / As (no batched parameter reaches them) broadcast here
+    Ax = (
+        (Ad @ xt[..., None])[..., 0]
+        + (As @ _shift_down(xt, -2)[..., None])[..., 0]
+        + (Bb @ xb[..., None, :, None])[..., 0]
+    )
+    l_all = torch.cat([lt.flatten(-2), lb], dim=-1)
+    u_all = torch.cat([ut.flatten(-2), ub], dim=-1)
+    # infinite bounds carry zero duals; substitute 0 BEFORE the product
+    # (0 * inf = NaN would poison the sum and its gradient)
+    fin_l, fin_u = torch.isfinite(l_all), torch.isfinite(u_all)
+    l_s = torch.where(fin_l, l_all, 0.0)
+    u_s = torch.where(fin_u, u_all, 0.0)
+    L = (
+        (c * xt).sum(dim=(-2, -1))
+        + (cb * xb).sum(-1)
+        + c0
+        + (yt * (b - Ax)).sum(dim=(-2, -1))
+        + torch.where(fin_l, zl_flat * (l_s - x_flat), 0.0).sum(-1)
+        + torch.where(fin_u, zu_flat * (x_flat - u_s), 0.0).sum(-1)
+    )
+    value = meta.prog.obj_sense * L
+    return (value, sol) if return_solution else value
+
+
+def solve_horizon(
+    prog: CompiledLP, params: Dict, T: int, block_hours: int = 24,
+    dtype=torch.float64, device="cuda", **solver_kw,
+):
+    """One-call front-end: extract structure, instantiate, solve (batched
+    when a parameter carries a leading scenario axis)."""
+    meta = extract_time_structure(prog, T, block_hours)
+    blp = meta.instantiate(params, dtype=dtype, device=device)
+    return solve_lp_banded_batch(meta, blp, **solver_kw)

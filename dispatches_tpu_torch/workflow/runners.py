@@ -1,18 +1,24 @@
 """Run-script entry points (port of `dispatches_tpu/workflow/runners.py`).
 
     python -m dispatches_tpu_torch.workflow.runners pricetaker \
-        --topology wind_pem --hours 168 --h2-price 2.0 2.5 3.0
+        --topology wind_pem --hours 168 --h2-price 2.0 2.5 3.0 --out sweep.bin
+    python -m dispatches_tpu_torch.workflow.runners battsweep \
+        --ratio 0.1 0.25 0.5 --duration 2 4 8 --out batt.bin
     python -m dispatches_tpu_torch.workflow.runners yearsweep \
-        --scenarios 16 --batch 8
+        --scenarios 16 --batch 8 --out year.bin
 
-Both run on the CUDA card unless ``--device cpu`` is given. Not ported yet,
-and refused rather than ignored: the ResultStore checkpoint (``--out`` /
-``store_path``), journal/tracer spans, cost records, neighbour warm starts,
+Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
+Sweeps checkpoint converged points to the ResultStore (``--out`` /
+``store_path``, `runtime/native.py`) and SKIP points already in it on a
+re-run (the reference's `result_*.json` skip idiom,
+`run_pricetaker_wind_PEM.py:43-50`). Not ported yet, and refused rather
+than ignored: journal/tracer spans, cost records, neighbour warm starts,
 adaptive batching and remediation.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
 import time
 from typing import List, Optional
@@ -20,9 +26,29 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..runtime.native import ResultStore
 from ..solvers.ipm import _reject_deferred
 
 TOPOLOGIES = ("wind_battery", "wind_pem", "wind_pem_tank_turbine")
+
+
+def _point_key(*vals) -> int:
+    """Stable ResultStore key derived from the sweep point's CONTENT (not
+    its loop index), equal to the JAX package's for the same values:
+    re-running a sweep with different grids against the same store must
+    re-solve new points instead of silently skipping them because an index
+    happens to be occupied."""
+    digest = hashlib.blake2s(
+        repr(tuple(v if isinstance(v, str) else float(v) for v in vals)).encode(),
+        digest_size=8,
+    ).digest()
+    return int.from_bytes(digest, "big") >> 1  # non-negative int64
+
+
+def _open_store(store_path):
+    """(store or None, set of keys already in it)."""
+    store = ResultStore(store_path) if store_path else None
+    return store, set(store.keys()) if store else set()
 
 
 def run_pricetaker(
@@ -35,7 +61,8 @@ def run_pricetaker(
     device="cuda",
 ):
     """Price-taker design sweep over H2 prices (one weekly-scale design LP
-    per price, dense IPM)."""
+    per price, dense IPM), with checkpoint/skip: converged points go to
+    the store at `store_path`, and points already there are skipped."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import (
         wind_battery_optimize,
@@ -43,13 +70,19 @@ def run_pricetaker(
         wind_battery_pem_tank_turb_optimize,
     )
 
-    _reject_deferred(store_path=store_path, tracer=tracer)
+    _reject_deferred(tracer=tracer)
     if topology not in TOPOLOGIES:
         raise ValueError(f"topology must be one of {TOPOLOGIES}")
     data = P.load_rts303()
     h2_prices = h2_prices or [2.0]
+    store, done = _open_store(store_path)
     out = []
     for i, h2 in enumerate(h2_prices):
+        key = _point_key(topology, hours, h2)
+        if key in done:
+            if verbose:
+                print(f"[{i}] h2=${h2}/kg: checkpointed, skipping")
+            continue
         if topology == "wind_battery":
             res = wind_battery_optimize(
                 hours, data["da_lmp"], data["da_wind_cf"], device=device
@@ -73,6 +106,11 @@ def run_pricetaker(
             "solver_stats": res.get("solver_stats", {}),
         }
         out.append(rec)
+        if store and res["converged"]:
+            store.append(
+                key,
+                [h2, rec["NPV"], rec["annual_revenue"], rec["pem_kw"], rec["batt_kw"]],
+            )
         if verbose:
             st = res.get("solver_stats", {})
             it = st.get("iterations", {})
@@ -82,6 +120,63 @@ def run_pricetaker(
                 f"{st.get('converged_frac', float('nan')):.3f}, "
                 f"iters {it.get('median', '?')}, "
                 f"gap {st.get('gap', {}).get('max', float('nan')):.1e}"
+            )
+    return out
+
+
+def run_battery_ratio_sweep(
+    ratios=(0.1, 0.25, 0.5),
+    durations=(2, 4, 8),
+    hours: int = 168,
+    wind_mw: float = None,
+    store_path: Optional[str] = None,
+    verbose: bool = True,
+    tracer=None,
+    device="cuda",
+):
+    """Battery sizing sweep over (capacity ratio, duration-hours), the
+    reference's `run_pricetaker_battery_ratio_size.py` (one CBC subprocess
+    per grid point there; one checkpointed in-process solve per point
+    here). Battery power is fixed at ratio x wind capacity; duration sets
+    both the SoC dynamics and the $/kWh capex leg. Converged points go to
+    the store at `store_path`; points already there are skipped."""
+    from ..case_studies.renewables import params as P
+    from ..case_studies.renewables.pricetaker import wind_battery_optimize
+
+    _reject_deferred(tracer=tracer)
+    data = P.load_rts303()
+    if wind_mw is None:
+        wind_mw = P.FIXED_WIND_MW
+    grid = [(r, d) for r in ratios for d in durations]
+    store, done = _open_store(store_path)
+    out = []
+    for i, (ratio, dur) in enumerate(grid):
+        key = _point_key(ratio, dur, hours, wind_mw)
+        if key in done:
+            if verbose:
+                print(f"[{i}] ratio={ratio} dur={dur}h: checkpointed, skipping")
+            continue
+        res = wind_battery_optimize(
+            hours, data["da_lmp"], data["da_wind_cf"], batt_mw=ratio * wind_mw,
+            wind_mw=wind_mw, design_opt=False, battery_duration_hrs=float(dur),
+            device=device,
+        )
+        rec = {
+            "battery_ratio": ratio,
+            "duration_hrs": dur,
+            "batt_mw": ratio * wind_mw,
+            "NPV": res["NPV"],
+            "annual_revenue": res["annual_revenue"],
+            "converged": bool(res["converged"]),
+            "solver_stats": res.get("solver_stats", {}),
+        }
+        out.append(rec)
+        if store and rec["converged"]:
+            store.append(key, [ratio, float(dur), rec["NPV"], rec["annual_revenue"]])
+        if verbose:
+            print(
+                f"[{i}] ratio={ratio} dur={dur}h: NPV ${rec['NPV']:.3e} "
+                f"rev ${rec['annual_revenue']:.3e}"
             )
     return out
 
@@ -165,13 +260,23 @@ def run_year_sweep(
     tiers: ``factor_dtype="float32"`` is the JAX package's sweep as it is.
 
     Each record carries ``batch_seconds``: the wall-clock of its batch's
-    solve, synchronised with the device."""
+    solve, synchronised with the device.
+
+    Converged scenarios go to the store at `store_path` and are skipped on
+    a re-run; an unconverged one stays re-solvable. The keys are the JAX
+    package's: the scenario's LMP scale, the horizon, the H2 price, the
+    data dtype, the mixed-precision flag, and the throughput knobs when
+    they are not the defaults. The port's f64-factorization tier gives
+    other answers than the JAX package's f32 one, so its keys carry one
+    component more ("factor_dtype=float64"): a default port run never
+    skips a scenario a JAX run stored, while ``factor_dtype="float32"``
+    shares the JAX package's keys."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import HybridDesign, build_pricetaker
     from ..runtime.telemetry import batch_stats
     from ..solvers.structured import extract_time_structure, solve_lp_banded_batch
 
-    _reject_deferred(store_path=store_path, tracer=tracer, trace=trace, cost=cost,
+    _reject_deferred(tracer=tracer, trace=trace, cost=cost,
                      warm_starts=warm_starts, adaptive=adaptive, remedy=remedy)
     tdtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     data = P.load_rts303()
@@ -194,8 +299,25 @@ def run_year_sweep(
         tdtype, mixed_precision, correctors, inv_factors, factor_dtype, meta.Tb
     )
 
+    store, done = _open_store(store_path)
+    mixed = 1.0 if (mixed_precision and tdtype == torch.float64) else 0.0
+    knob_key = (float(correctors), 1.0 if inv_factors else 0.0) if (
+        correctors or inv_factors) else ()
+    tier_key = ("factor_dtype=float64",) if solver_kw.get("factor_dtype") == torch.float64 else ()
+
+    def keys(k):
+        base = ("yearsweep", float(scales[k]), hours, h2_price,
+                str(tdtype).removeprefix("torch."), mixed)
+        ks = [_point_key(*base, *knob_key, *tier_key)]
+        if not knob_key and not tier_key:
+            # the JAX package's stores from before its knobs joined the key
+            ks.append(_point_key(*base, 0.0, 0.0))
+        return ks
+
+    pending = [k for k in range(scenarios) if not any(key in done for key in keys(k))]
+    if len(pending) < scenarios and verbose:
+        print(f"{scenarios - len(pending)} scenarios checkpointed, skipping")
     out = []
-    pending = list(range(scenarios))
     for lo in range(0, len(pending), batch):
         todo = pending[lo : lo + batch]
         # pad to the fixed batch width, as the JAX runner does
@@ -216,7 +338,7 @@ def run_year_sweep(
         stats = batch_stats(sol)
         iters_b = sol.iterations.cpu().numpy()[: len(todo)]
         for j, k in enumerate(todo):
-            out.append({
+            rec = {
                 "scenario": k,
                 "lmp_scale": float(scales[k]),
                 "NPV": float(npvs[j]),
@@ -224,7 +346,10 @@ def run_year_sweep(
                 "iterations": int(iters_b[j]),
                 "solver_stats": stats,
                 "batch_seconds": solve_wall,
-            })
+            }
+            out.append(rec)
+            if store and rec["converged"]:
+                store.append(keys(k)[0], [rec["lmp_scale"], rec["NPV"], 1.0])
         if verbose:
             print(
                 f"[{todo[0]}..{todo[-1]}] {len(todo)} year-LPs: "
@@ -234,7 +359,8 @@ def run_year_sweep(
             )
     n_unconv = sum(1 for r in out if not r["converged"])
     if n_unconv and verbose:
-        print(f"WARNING: {n_unconv} scenarios did not converge")
+        print(f"WARNING: {n_unconv} scenarios did not converge "
+              "(not checkpointed; they re-solve on the next run)")
     return out
 
 
@@ -248,6 +374,13 @@ def main(argv=None):
     pt.add_argument("--topology", choices=TOPOLOGIES, default="wind_pem")
     pt.add_argument("--hours", type=int, default=168)
     pt.add_argument("--h2-price", type=float, nargs="+", default=[2.0])
+    pt.add_argument("--out", default=None, help="ResultStore checkpoint path")
+
+    bs = sub.add_parser("battsweep", help="battery ratio x duration sizing sweep")
+    bs.add_argument("--ratio", type=float, nargs="+", default=[0.1, 0.25, 0.5])
+    bs.add_argument("--duration", type=int, nargs="+", default=[2, 4, 8])
+    bs.add_argument("--hours", type=int, default=168)
+    bs.add_argument("--out", default=None, help="ResultStore checkpoint path")
 
     ys = sub.add_parser(
         "yearsweep", help="year-scale LMP-scenario design sweep (north-star)"
@@ -263,12 +396,18 @@ def main(argv=None):
                     help="Gondzio centrality correctors per IPM iteration")
     ys.add_argument("--inv-factors", action="store_true",
                     help="store block factors as inverses")
+    ys.add_argument("--out", default=None, help="ResultStore checkpoint path")
 
     args = p.parse_args(argv)
     if args.cmd == "pricetaker":
         run_pricetaker(
             topology=args.topology, hours=args.hours, h2_prices=args.h2_price,
-            device=args.device,
+            store_path=args.out, device=args.device,
+        )
+    elif args.cmd == "battsweep":
+        run_battery_ratio_sweep(
+            ratios=args.ratio, durations=args.duration, hours=args.hours,
+            store_path=args.out, device=args.device,
         )
     else:
         run_year_sweep(
@@ -276,7 +415,7 @@ def main(argv=None):
             h2_price=args.h2_price, seed=args.seed, dtype=args.dtype,
             mixed_precision=not args.no_mixed_precision,
             correctors=args.correctors, inv_factors=args.inv_factors,
-            device=args.device,
+            store_path=args.out, device=args.device,
         )
     return 0
 

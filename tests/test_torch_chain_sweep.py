@@ -5,7 +5,9 @@ the JAX package.
 On the CPU the wrapper runs its plain PyTorch version; the JAX Pallas kernel
 runs under the Pallas interpreter, as `tests/test_pallas_sweep.py` runs it.
 The CUDA kernel itself is held against the plain version on the card
-(`test_kernel_matches_plain_on_card`, and `chip_smoke.py`).
+(`test_kernel_matches_plain_on_card`, and `chip_smoke.py`), and so is the
+year-tier gradient that runs through it
+(`test_year_tier_gradient_on_the_card_launches_the_kernel`).
 """
 import functools
 
@@ -275,3 +277,43 @@ def test_kernel_matches_plain_on_card():
         cs.chain_sweep(J.double(), C.double(), R.double())
     with pytest.raises(ValueError, match="multiple of 4"):
         cs.chain_sweep(J.contiguous(), C.contiguous(), R)  # natural layout, m = 241
+
+
+@pytest.mark.cuda
+def test_year_tier_gradient_on_the_card_launches_the_kernel():
+    """`optimal_value_banded` at the year tier on the card (the flagship
+    design LP at T=240, 2 lanes): the kernel launches during the gradient's
+    solve, and value and LMP gradient agree with the same call on the CPU,
+    whose sweeps are the plain version: value rel 1e-6, gradient atol 1e-3
+    (entries up to 1.4; f32 sweeps in another order move the iterate)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.solvers.structured import (
+        extract_time_structure, optimal_value_banded,
+    )
+    from dispatches_tpu_torch.workflow.runners import year_sweep_solver_kw
+
+    T = 240
+    prog, _ = build_pricetaker(HybridDesign(
+        T=T, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    meta = extract_time_structure(prog, T, block_hours=24)
+    data = P.load_rts303()
+    lmps = np.array([[1.0], [1.3]]) * data["da_lmp"][:T][None]
+    cf = data["da_wind_cf"][:T]
+    kw = year_sweep_solver_kw(torch.float64, Tb=meta.Tb)
+    out = {}
+    for device in ("cpu", "cuda"):
+        cs.chain_sweep.launches = 0
+        lm = torch.tensor(lmps, device=device, requires_grad=True)
+        v = optimal_value_banded(meta, {"lmp": lm, "wind_cf": cf}, device=device, **kw)
+        g, = torch.autograd.grad(v.sum(), lm)
+        out[device] = (v.detach().cpu().numpy(), g.cpu().numpy(), cs.chain_sweep.launches)
+    assert out["cpu"][2] == 0 and out["cuda"][2] > 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-6)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-3)

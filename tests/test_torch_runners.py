@@ -1,6 +1,7 @@
 """Port parity: the year-sweep runner (`dispatches_tpu_torch/workflow/
 runners.py`) against the JAX package's, and the port's independence from
-JAX and from the JAX package.
+JAX and from the JAX package. The sweeps' checkpoints and the battery
+sweep are in `test_torch_checkpoints.py`.
 """
 import re
 from pathlib import Path
@@ -28,8 +29,8 @@ def test_year_sweep_matches_jax():
         assert g["iterations"] == w["iterations"]
         assert g["NPV"] == pytest.approx(w["NPV"], rel=1e-3)
         assert g["batch_seconds"] > 0
-    with pytest.raises(NotImplementedError, match="store_path"):
-        T.run_year_sweep(scenarios=1, batch=1, hours=96, store_path="x.bin", device="cpu")
+    with pytest.raises(NotImplementedError, match="tracer"):
+        T.run_year_sweep(scenarios=1, batch=1, hours=96, tracer=object(), device="cpu")
 
 
 def test_year_sweep_default_meets_highs():
@@ -92,3 +93,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         text = path.read_text()
         hits = [m.group(0) for m in bad.finditer(text)]
         assert not hits, f"{path.relative_to(ROOT)}: {hits}"
+

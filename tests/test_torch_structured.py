@@ -35,7 +35,7 @@ MIXED = dict(kkt_refine=1, tol=1e-7, max_iter=40)
 
 
 def _case(T):
-    p = {"lmp": DATA["da_lmp"][:T], "wind_cf": DATA["da_wind_cf"][:T]}
+    p = _params(T)
     jprog, _ = j_build(JHybridDesign(T=T, **DESIGN))
     jmeta = JS.extract_time_structure(jprog, T, block_hours=24)
     jblp = jmeta.instantiate({k: jnp.asarray(v) for k, v in p.items()})
@@ -50,10 +50,18 @@ def case120():
     return _case(120)
 
 
+def _params(T):
+    return {"lmp": DATA["da_lmp"][:T], "wind_cf": DATA["da_wind_cf"][:T]}
+
+
 @pytest.fixture(scope="module")
 def jax_f64_120(case120):
-    jmeta, jblp, _, _ = case120
-    return jax.block_until_ready(JS.solve_lp_banded(jmeta, jblp))
+    """The JAX package's f64 solve at T=120 through its one-call front-end
+    `solve_horizon` (extract, instantiate, `solve_lp_banded`: the same
+    computation as `solve_lp_banded` on the case's BandedLP, compiled once)."""
+    jmeta = case120[0]
+    p = {k: jnp.asarray(v) for k, v in _params(120).items()}
+    return jax.block_until_ready(JS.solve_horizon(jmeta.prog, p, 120))
 
 
 def test_instantiate_and_f64_solve_match_jax(case120, jax_f64_120):
@@ -108,6 +116,23 @@ def test_slabs_match_unslabbed():
     slab = TS.solve_lp_banded(tmeta, tblp, slabs=5, **kw)
     assert bool(ref.converged) and bool(slab.converged)
     assert float(slab.obj) == pytest.approx(float(ref.obj), rel=1e-3)
+
+
+def test_solve_horizon_matches_jax(case120, jax_f64_120):
+    """The one-call front-end at T=120, f64: the port's `solve_horizon`
+    against the JAX package's (objective rel 1e-6, the same iteration
+    count, x atol 1e-6); with two LMP scenarios on a leading axis it
+    solves them as a batch whose lane 0 is the unbatched solve (rel 1e-9)."""
+    tprog, p, want = case120[2].prog, _params(120), jax_f64_120
+    got = TS.solve_horizon(tprog, p, 120, device="cpu")
+    assert bool(got.converged) and bool(want.converged)
+    assert int(got.iterations) == int(want.iterations)
+    assert float(got.obj) == pytest.approx(float(want.obj), rel=1e-6)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-6)
+    two = TS.solve_horizon(tprog, dict(p, lmp=np.stack([p["lmp"], 1.1 * p["lmp"]])), 120,
+                           device="cpu")
+    assert two.obj.shape == (2,) and bool(two.converged.all())
+    assert float(two.obj[0]) == pytest.approx(float(got.obj), rel=1e-9)
 
 
 def test_guards_match_jax(case120):
