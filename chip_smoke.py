@@ -8,7 +8,7 @@ Phases (any failure raises, and the script exits non-zero):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile csrc/chain_sweep.cu with nvcc, print the seconds
   3. kernel   the chain-sweep kernel against its plain PyTorch version on
-              the card at ten (chains, steps, m, k) shapes, both sweep
+              the card at 14 (chains, steps, m, k) shapes, both sweep
               directions, factors in the padded layout the kernel streams
               (`sweep_factors`), tolerance 1e-4 of the reference's max;
               times beside the HBM bound and the plain version's time, with
@@ -52,6 +52,31 @@ Phases (any failure raises, and the script exits non-zero):
               Without the year phase, grad runs the year phase's sweep
               itself (solve only) for the NPVs and batch seconds of (b),
               and HiGHS on scenario 0 for (c).
+  7. adaptive lane retirement, warm starts and remediation on the card:
+              (a) `solve_lp_banded_adaptive` over the year phase's 8 lanes
+                  with its solver options, chunk_iters=8, ladder_base=2
+                  (buckets 8 -> 4 -> 2, so the kernel runs at 40, 20 and 10
+                  interior chains): per-lane iterations and convergence the
+                  year phase's, NPVs within ADAPTIVE_NPV_RTOL of its, and
+                  the lanes harvested at bucket 8 bitwise its NPVs (which
+                  are functions of x alone); if they are not, the plain
+                  batch is solved again and those lanes are held to that
+                  run-to-run difference instead. Printed: the buckets, the
+                  lane-iterations run beside 8 x the slowest lane's, the
+                  wall beside the year batch's, launches by chain count;
+              (b) the CLI, ``yearsweep --scenarios 16 --batch 8
+                  --warm-starts --adaptive --remedy --out <tmp>``: all 16
+                  converged and stored, each batch's iterations (the
+                  runner prints them, the warm one tagged) and the
+                  iterations saved, a warm-started lane within 1e-3 of
+                  HiGHS (the year phase's scenario 0, whose HiGHS solve
+                  is reused, when it is one; else the largest scale),
+                  and a rerun that launches no kernel;
+              (c) the remedy ladder on the card: a rank-deficient dense LP
+                  (reg_p = reg_d = 0) between two healthy ones through
+                  `solve_lp_adaptive(remedy=RemedyPolicy(allow_lane_switch=
+                  False))` recovers at "regularize", the others untouched.
+              Without the year phase, (a) runs the year phase's sweep first.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -70,12 +95,14 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 # (chains, steps, m, k): three small ones, a year batch of 8 lanes as one
 # chain each, and the shapes the year sweep's 5 SPIKE slabs give the
 # kernel: 8 x 5 interior chains of 72 steps and 8 interface chains of 5;
-# last, m > 256, where the forward sweep's rows take two TMA boxes
+# m > 256, where the forward sweep's rows take two TMA boxes; last, the
+# shapes of the adaptive year batch after compaction to 4 and 2 lanes
 KERNEL_SHAPES = [
     (1, 12, 17, 1), (4, 6, 33, 3), (2, 5, 9, 18),
     (8, 365, 241, 1), (8, 365, 241, 3),
     (40, 72, 241, 1), (40, 72, 241, 3), (8, 5, 241, 1), (8, 5, 241, 3),
     (3, 7, 300, 2),
+    (20, 72, 241, 1), (20, 72, 241, 3), (10, 72, 241, 1), (4, 5, 241, 1),
 ]
 MAIN_SHAPE = (40, 72, 241, 1)  # the year sweep's interior chains, k = 1 solves
 TOL = 1e-4
@@ -336,7 +363,8 @@ def phase_year(scenarios=8, batch=8, hours=8760):
     return dict(scenarios=len(recs), wall_s=wall, batch_seconds=batch_s,
                 mean_iterations=float(np.mean(iters)), peak_bytes=peak,
                 launches=launches, rel_vs_highs=rel, kernel_share=share,
-                device_busy=busy, window_s=window, records=recs, highs_x=res.x)
+                device_busy=busy, window_s=window, records=recs, highs_x=res.x,
+                highs_npv=(rec["lmp_scale"], npv_ref))
 
 
 GRAD_SIZES = ("batt_kw", "pem_kw", "h2_price")
@@ -599,11 +627,216 @@ def phase_grad(year_records=None, highs_x=None, n=8, hours=8760):
                 battsweep_wall_s=wall_d)
 
 
+# (a): a lane's NPV after compaction against the year phase's: the same
+# iterate sequence, moved only by batch-size-dependent rounding
+ADAPTIVE_NPV_RTOL = 1e-9
+ADAPTIVE_CHUNK, ADAPTIVE_LADDER = 8, 2
+# (c): the JAX package's remedy patient (tests/test_remedy.py)
+SICK_KW = dict(tol=1e-8, max_iter=60, reg_p=0.0, reg_d=0.0)
+
+
+def _dense_lp(rows, device="cuda"):
+    from dispatches_tpu_torch.core.program import LPData
+
+    fields = [np.asarray(f, np.float64) for f in zip(*rows)]
+    return LPData(*(torch.as_tensor(f, device=device) for f in fields))
+
+
+def _adaptive_year(year_records, hours):
+    """(a): the year phase's lanes through lane retirement and compaction."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.runtime.adaptive import solve_lp_banded_adaptive
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.structured import (
+        extract_time_structure, solve_lp_banded_batch,
+    )
+    from dispatches_tpu_torch.workflow.runners import year_sweep_solver_kw
+
+    data = P.load_rts303()
+    prog, _ = build_pricetaker(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    meta = extract_time_structure(prog, hours, block_hours=24)
+    scales = np.array([r["lmp_scale"] for r in year_records])
+    # the year phase's data, built as `run_year_sweep` builds it
+    params = {
+        "lmp": torch.as_tensor(scales[:, None] * np.resize(data["da_lmp"], hours)[None, :],
+                               dtype=torch.float64, device="cuda"),
+        "wind_cf": torch.as_tensor(np.resize(data["da_wind_cf"], hours),
+                                   dtype=torch.float64, device="cuda"),
+    }
+    blp = meta.instantiate(params, device="cuda")
+    kw = year_sweep_solver_kw(torch.float64, Tb=meta.Tb)
+    torch.cuda.synchronize()
+    chain_sweep.launches, chain_sweep.launches_by_chains = 0, {}
+    stats = {}
+    t0 = time.perf_counter()
+    sol = solve_lp_banded_adaptive(meta, blp, chunk_iters=ADAPTIVE_CHUNK,
+                                   ladder_base=ADAPTIVE_LADDER, stats=stats, **kw)
+    conv = sol.converged.tolist()
+    wall = time.perf_counter() - t0
+    launches = chain_sweep.launches
+    by_chains = dict(sorted(chain_sweep.launches_by_chains.items()))
+    npvs = prog.eval_expr("NPV", sol.x, params).cpu().numpy()
+    iters = sol.iterations.tolist()
+    y_iters = [r["iterations"] for r in year_records]
+    y_npvs = np.array([r["NPV"] for r in year_records])
+    rel = np.abs(npvs - y_npvs) / np.abs(y_npvs)
+    plain = len(iters) * max(iters)
+    log(f"[adaptive] (a) {len(iters)} year lanes, chunk_iters {ADAPTIVE_CHUNK}, ladder base "
+        f"{ADAPTIVE_LADDER}: buckets {stats['buckets']}, lane-iterations run "
+        f"{stats['lane_iterations']} ({stats['padded_lane_iterations']} of them on padding "
+        f"rows) against {plain} (= {len(iters)} x {max(iters)}) in the plain batch, wall {wall:.2f} s against the year batch's "
+        f"{year_records[0]['batch_seconds']:.2f} s, chain_sweep launches {launches} by chain "
+        f"count {by_chains}, lanes retired {stats['lanes_retired']}; iterations {iters}; "
+        f"NPV rel vs the year phase max {rel.max():.3e}")
+    if iters != y_iters or conv != [r["converged"] for r in year_records]:
+        raise AssertionError(f"adaptive lanes {iters} {conv} vs the year phase's {y_iters}")
+    if not all(conv):
+        raise AssertionError(f"adaptive year lanes not converged: {conv}")
+    if not np.all(rel <= ADAPTIVE_NPV_RTOL):
+        raise AssertionError(f"adaptive NPVs vs the year phase rel {rel} > {ADAPTIVE_NPV_RTOL}")
+    if launches <= 0 or stats["buckets"][-1] >= stats["buckets"][0]:
+        raise AssertionError(f"no compacted kernel run: {launches} launches, "
+                             f"buckets {stats['buckets']}")
+    # lanes harvested before the first compaction ran only at bucket 8
+    first = stats["buckets"].count(stats["buckets"][0]) * ADAPTIVE_CHUNK
+    early = [i for i, n in enumerate(iters) if n <= first]
+    diff = [float(abs(npvs[i] - y_npvs[i]) / abs(y_npvs[i])) for i in early]
+    run_to_run = None
+    if any(diff):
+        # not bitwise: hold them to two plain runs' difference instead
+        sol2 = solve_lp_banded_batch(meta, blp, **kw)
+        npv2 = prog.eval_expr("NPV", sol2.x, params).cpu().numpy()
+        run_to_run = float(np.max(np.abs(npv2 - y_npvs) / np.abs(y_npvs)))
+        log(f"[adaptive] (a) lanes {early} differ from the year phase by {diff}; two plain "
+            f"runs of the batch differ by {run_to_run:.3e}")
+        if not max(diff) <= run_to_run:
+            raise AssertionError(
+                f"lanes harvested at bucket {stats['buckets'][0]} differ from the year phase "
+                f"by {diff}, more than two plain runs do ({run_to_run})")
+    else:
+        log(f"[adaptive] (a) lanes {early}, harvested at bucket {stats['buckets'][0]}: "
+            "NPVs bitwise the year phase's")
+    return dict(wall_s=wall, stats=stats, launches=launches, launches_by_chains=by_chains,
+                rel_max=float(rel.max()), bitwise_lanes=early, bucket0_diff=diff,
+                run_to_run=run_to_run, plain_lane_iterations=plain)
+
+
+def _adaptive_cli(hours, highs_npv=None):
+    """(b): the yearsweep CLI with warm starts, adaptive batching and the
+    remedy ladder, with a checkpoint store. `highs_npv` = (LMP scale, NPV)
+    of a HiGHS solve already made (the year phase's scenario 0); it is
+    reused when that scenario lies in the warm-started batch."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.obs import metrics
+    from dispatches_tpu_torch.runtime.native import ResultStore
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+    from dispatches_tpu_torch.workflow.runners import main as cli
+
+    saved_key = 'warm_start_iters_saved_total{runner="yearsweep",source="neighbor"}'
+    argv = ["--device", "cuda", "yearsweep", "--scenarios", "16", "--batch", "8",
+            "--hours", str(hours), "--warm-starts", "--adaptive", "--remedy"]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"{tmp}/year.bin"
+        saved0 = metrics.snapshot()["counters"].get(saved_key, 0.0)
+        chain_sweep.launches = 0
+        t0 = time.perf_counter()
+        cli(argv + ["--out", store])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = chain_sweep.launches
+        saved = metrics.snapshot()["counters"].get(saved_key, 0.0) - saved0
+        rows = ResultStore(store).load()
+        chain_sweep.launches = 0
+        cli(argv + ["--out", store])
+        again, n_again = chain_sweep.launches, len(ResultStore(store).keys())
+    log(f"[adaptive] (b) yearsweep --warm-starts --adaptive --remedy: 16 scenarios in "
+        f"{wall:.1f} s, {len(rows)} stored, chain_sweep launches {launches}, warm batch "
+        f"saved {saved:.1f} iterations against the cold batch's mean; rerun: {again} "
+        f"launches, {n_again} records")
+    if len(rows) != 16:
+        raise AssertionError(f"yearsweep stored {len(rows)} of 16 scenarios (unconverged ones "
+                             "are not stored)")
+    if again or n_again != 16:
+        raise AssertionError(f"the rerun solved again: {again} launches, {n_again} records")
+    # pending scenarios run sorted by LMP scale: the 8 largest form the
+    # second, warm-started batch
+    warm = sorted(rows.values(), key=lambda v: v[0])[8:]
+    known = [v for v in warm if highs_npv is not None and v[0] == highs_npv[0]]
+    if known:
+        (scale, npv, _), ref = known[0], highs_npv[1]
+    else:
+        scale, npv, _ = warm[-1]
+        data = P.load_rts303()
+        prog, _ = build_pricetaker(HybridDesign(
+            T=hours, with_battery=True, with_pem=True, design_opt=True,
+            h2_price_per_kg=2.5, initial_soc_fixed=None,
+        ))
+        params = {"lmp": scale * np.resize(data["da_lmp"], hours),
+                  "wind_cf": np.resize(data["da_wind_cf"], hours)}
+        ref = float(prog.eval_expr(
+            "NPV", torch.as_tensor(solve_lp_scipy_sparse(prog, params).x), params))
+    rel = abs(npv - ref) / abs(ref)
+    log(f"[adaptive] (b) warm-started lane s={scale:.6f}: NPV {npv:.8e} HiGHS {ref:.8e} "
+        f"rel {rel:.2e}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"warm-started year NPV rel {rel:.2e} > 1e-3 vs HiGHS")
+    return dict(wall_s=wall, launches=launches, iters_saved=saved, rel_vs_highs=rel)
+
+
+def _adaptive_remedy():
+    """(c): the remedy ladder on a dense batch on the card."""
+    from dispatches_tpu_torch.obs import health
+    from dispatches_tpu_torch.runtime.adaptive import solve_lp_adaptive
+    from dispatches_tpu_torch.runtime.remedy import RemedyPolicy
+
+    healthy = ([[1.0, 0.0], [0.0, 1.0]], [1.0, 1.0], [1.0, 1.0], [0.0, 0.0], [10.0, 10.0], 0.0)
+    sick = ([[1.0, 1.0], [1.0, 1.0]], [1.0, 1.0], [1.0, 2.0], [0.0, 0.0], [10.0, 10.0], 0.0)
+    lp = _dense_lp([healthy, sick, healthy])
+    stats = {}
+    sol = solve_lp_adaptive(lp, stats=stats, remedy=RemedyPolicy(allow_lane_switch=False),
+                            **SICK_KW)
+    off = solve_lp_adaptive(lp, **SICK_KW)
+    verdicts = [v.verdict for v in health.classify_solution(sol, budget=SICK_KW["max_iter"])]
+    before = [v.verdict for v in health.classify_solution(off, budget=SICK_KW["max_iter"])]
+    rem = stats.get("remediated", {})
+    log(f"[adaptive] (c) remedy on {sol.x.device}: verdicts {before} -> {verdicts}, {rem}")
+    if list(rem) != [1] or rem[1]["rung"] != "regularize" or verdicts != ["healthy"] * 3:
+        raise AssertionError(f"the remedy ladder did not recover the sick lane: {rem}")
+    if not (torch.equal(off.x[0], sol.x[0]) and torch.equal(off.x[2], sol.x[2])):
+        raise AssertionError("the remedy ladder changed a healthy lane")
+    return dict(before=before, after=verdicts, remediated=rem)
+
+
+def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
+    """The `adaptive` phase (see the module docstring), on the card.
+    `year_records` and `highs_npv` are the year phase's records and its
+    HiGHS (LMP scale, NPV); the phase computes what it needs when absent."""
+    from dispatches_tpu_torch.workflow.runners import run_year_sweep
+
+    if year_records is None:
+        log("[adaptive] the year phase did not run: solving its batch here")
+        year_records = run_year_sweep(scenarios=n, batch=n, hours=hours, device="cuda")
+    a = _adaptive_year(year_records, hours)
+    b = _adaptive_cli(hours, highs_npv)
+    c = _adaptive_remedy()
+    return dict(year=a, cli=b, remedy=c)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,weekly,year,grad",
-                    help="comma list of kernel, weekly, year, grad (device and build "
-                    "always run)")
+    ap.add_argument("--phases", default="kernel,weekly,year,grad,adaptive",
+                    help="comma list of kernel, weekly, year, grad, adaptive (device and "
+                    "build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -614,6 +847,8 @@ def main(argv=None):
         phase_weekly()
     year = phase_year() if "year" in phases else {}
     grad = phase_grad(year.get("records"), year.get("highs_x")) if "grad" in phases else {}
+    adaptive = (phase_adaptive(year.get("records"), year.get("highs_npv"))
+                if "adaptive" in phases else {})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -624,7 +859,11 @@ def main(argv=None):
         "launches": year.get("launches", grad.get("launches")),
         "launches_by_path": {"year": year.get("launches"),
                              "grad_year": grad.get("launches"),
-                             "grad_bracket": grad.get("bracket_launches")},
+                             "grad_bracket": grad.get("bracket_launches"),
+                             "adaptive_year": adaptive.get("year", {}).get("launches"),
+                             "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches")},
+        # the adaptive year batch's launches by chain count (compaction)
+        "adaptive_launches_by_chains": adaptive.get("year", {}).get("launches_by_chains"),
         "max_abs_err": max_err,
         # the forward sweep at MAIN_SHAPE; both directions under "directions"
         "ms": main.get("forward", {}).get("ms"),

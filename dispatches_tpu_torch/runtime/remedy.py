@@ -1,0 +1,216 @@
+"""Self-healing solves: the verdict-driven remediation ladder (port of
+`dispatches_tpu/runtime/remedy.py`).
+
+`obs/health.py` turns solver end states and traces into verdicts; this
+module answers the numerical ones (`diverged` / `stalled` / `cycling` /
+`nonfinite`) with an escalation ladder run on the host against the ONE
+lane that retired unhealthy, while the rest of the batch's results stand:
+
+1. ``cold`` — re-solve with the original options and no warm start;
+2. ``regularize`` — raise the IPM's `reg_p` / `reg_d` by
+   `RemedyPolicy.reg_scale` over the dtype defaults;
+3. ``float64`` — re-solve an f32 problem in f64 (skipped for f64 data);
+4. ``lane_switch`` — change solver family. Banded problems have no paired
+   lane (``"no_paired_lane"``). The dense IPM's pair is the first-order
+   PDHG lane, which the port does not have yet: a dense engine whose
+   policy allows the switch is refused when it is built;
+5. give up — an ``unrecoverable`` verdict, and the original (unhealthy)
+   row passes through.
+
+Every rung tried counts in ``remediation_attempts_total{rung,entry}``; a
+rung that cures the lane counts in
+``remediation_recovered_total{verdict,rung}`` and ends the ladder. The
+JAX package's journal event and flight-recorder capture have no
+counterpart in the port yet; the outcome and its history go into the
+adaptive entry points' ``stats["remediated"]``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from ..obs import health as obs_health
+from ..obs import metrics as obs_metrics
+
+# verdicts the ladder knows how to attack; the others are policy or
+# process failures, which a re-solve would not change
+REMEDIABLE = ("diverged", "stalled", "cycling", "nonfinite")
+
+# ladder order, cheapest first
+RUNGS = ("cold", "regularize", "float64", "lane_switch")
+
+obs_metrics.describe(
+    "remediation_attempts_total",
+    "Remediation ladder rungs tried, by rung and entry point.",
+)
+obs_metrics.describe(
+    "remediation_recovered_total",
+    "Unhealthy solves recovered by the ladder, by original verdict and "
+    "winning rung.",
+)
+
+
+class RemedyPolicy(NamedTuple):
+    """Knobs of the escalation ladder. `max_attempts` is the per-request
+    retry budget (rungs solved; skipped rungs are free). The JAX package's
+    `deadline_margin` serves its serving tier's deadlines and comes with
+    that tier."""
+
+    max_attempts: int = 4
+    reg_scale: float = 1e3  # rung-2 multiplier over the dtype reg defaults
+    allow_f64: bool = True
+    allow_lane_switch: bool = True
+
+
+class RemedyOutcome(NamedTuple):
+    solution: Any  # recovered row (rung set), else None
+    verdict: Any  # final obs_health.Verdict
+    rung: Optional[str]  # winning rung name; None when not recovered
+    attempts: int  # rungs actually solved
+    history: tuple  # ((rung, resulting verdict or note), ...)
+
+    @property
+    def recovered(self) -> bool:
+        return self.rung is not None
+
+
+def as_remedy(spec, *, solver_kw=None, entry="solve_lp"):
+    """Coerce a ``remedy=`` argument into a `RemedyEngine` (or None):
+    None, True (default policy), a `RemedyPolicy`, a dict of policy
+    keywords, or an engine (returned as is)."""
+    if spec is None:
+        return None
+    if isinstance(spec, RemedyEngine):
+        return spec
+    if spec is True:
+        spec = RemedyPolicy()
+    elif isinstance(spec, dict):
+        spec = RemedyPolicy(**spec)
+    return RemedyEngine(spec, solver_kw=solver_kw, entry=entry)
+
+
+class RemedyEngine:
+    """One remediation policy bound to the solver options of the path it
+    heals: the dense IPM (`ipm.solve_lp`), or the banded one when `entry`
+    is ``"solve_lp_banded"``. Host-side and stateless between calls.
+
+    Raises NotImplementedError for a dense engine whose policy allows the
+    lane switch: its rung re-solves through PDHG, which is not ported yet
+    (pass ``RemedyPolicy(allow_lane_switch=False)``)."""
+
+    def __init__(
+        self,
+        policy: Optional[RemedyPolicy] = None,
+        *,
+        solver_kw: Optional[dict] = None,
+        entry: str = "solve_lp",
+    ):
+        self.policy = policy or RemedyPolicy()
+        self.banded = entry == "solve_lp_banded"
+        if self.policy.allow_lane_switch and not self.banded:
+            raise NotImplementedError(
+                "the dense lane_switch rung re-solves through PDHG, which is "
+                "not ported yet; use RemedyPolicy(allow_lane_switch=False)"
+            )
+        self.solver_kw = dict(solver_kw or {})
+        # the ladder re-solves plainly
+        self.solver_kw.pop("trace", None)
+        self.entry = entry
+
+    def remediate(self, problem, verdict, *, meta=None) -> RemedyOutcome:
+        """Run the ladder for ONE unbatched problem (`LPData`, or
+        `BandedLP` with its `meta`) whose solve earned `verdict`.
+        ``outcome.solution`` is a one-lane solution of the original row's
+        dtype, to substitute in place. Never raises: a rung whose re-solve
+        fails is recorded in the history and the ladder climbs on."""
+        pol = self.policy
+        original = getattr(verdict, "verdict", str(verdict))
+        history = []
+        attempts = 0
+        won = None
+        sol = None
+        for rung in RUNGS:
+            if attempts >= pol.max_attempts:
+                break
+            try:
+                result = getattr(self, f"_rung_{rung}")(problem, meta)
+            except Exception as e:  # a broken rung must not kill the solve
+                result = f"error:{type(e).__name__}"
+            if isinstance(result, str):  # rung skipped / inapplicable
+                history.append((rung, result))
+                continue
+            attempts += 1
+            obs_metrics.inc("remediation_attempts_total", rung=rung, entry=self.entry)
+            cand, budget = result
+            v = obs_health.classify_solution(cand, budget=budget)
+            name = v[0].verdict if v else "unknown"
+            history.append((rung, name))
+            if name in ("healthy", "slow"):
+                won, sol = rung, cand
+                break
+        if won is not None:
+            obs_metrics.inc("remediation_recovered_total", verdict=original, rung=won)
+            final = obs_health.Verdict(
+                "healthy", None, None, f"remediated ({won}) from {original}"
+            )
+        else:
+            final = obs_health.Verdict(
+                "unrecoverable",
+                getattr(verdict, "first_bad_iteration", None),
+                getattr(verdict, "quantity", None),
+                f"remediation ladder exhausted after {attempts} attempts "
+                f"(original: {original}; "
+                + ", ".join(f"{r}={n}" for r, n in history) + ")",
+            )
+        return RemedyOutcome(sol, final, won, attempts, tuple(history))
+
+    # -- the rungs: each returns (solution, classify budget), or a short
+    # string naming why the rung does not apply
+    def _rung_cold(self, problem, meta):
+        return self._native_solve(problem, meta, self.solver_kw)
+
+    def _rung_regularize(self, problem, meta):
+        kw = dict(self.solver_kw)
+        f64 = problem.b.dtype == torch.float64
+        # a user reg (an explicit 0.0 too) escalates FROM the dtype
+        # defaults: 0 * scale would change nothing
+        rp = kw.get("reg_p") or (1e-13 if f64 else 1e-8)
+        rd = kw.get("reg_d") or (1e-12 if f64 else 1e-7)
+        kw["reg_p"] = float(rp) * self.policy.reg_scale
+        kw["reg_d"] = float(rd) * self.policy.reg_scale
+        return self._native_solve(problem, meta, kw)
+
+    def _rung_float64(self, problem, meta):
+        if not self.policy.allow_f64:
+            return "disabled"
+        dtype = problem.b.dtype
+        if dtype == torch.float64:
+            return "already_f64"
+        sol, budget = self._native_solve(
+            _cast_floats(problem, torch.float64), meta, self.solver_kw
+        )
+        return _cast_floats(sol, dtype), budget
+
+    def _rung_lane_switch(self, problem, meta):
+        if not self.policy.allow_lane_switch:
+            return "disabled"
+        return "no_paired_lane"  # a banded engine; dense ones refuse at build
+
+    def _native_solve(self, problem, meta, kw):
+        budget = kw.get("max_iter", 60)
+        if self.banded:
+            from ..solvers.structured import solve_lp_banded
+
+            return solve_lp_banded(meta, problem, **kw), budget
+        from ..solvers.ipm import solve_lp
+
+        return solve_lp(problem, **kw), budget
+
+
+def _cast_floats(tree, dtype):
+    """Cast the floating tensors of a problem / solution NamedTuple,
+    leaving flag, count and index fields as they are."""
+    return type(tree)(*(
+        a.to(dtype) if torch.is_floating_point(a) else a for a in tree
+    ))

@@ -331,10 +331,14 @@ def chain_sweep(J, C, R, reverse: bool = False):
     if err != 0:
         raise RuntimeError(f"chain_sweep kernel launch failed: cudaError {err}")
     chain_sweep.launches += 1
+    by = chain_sweep.launches_by_chains
+    by[chains] = by.get(chains, 0) + 1
     return out
 
 
+# launches of the kernel, in all and by the launch's chain count
 chain_sweep.launches = 0
+chain_sweep.launches_by_chains = {}
 
 
 def chain_solve(J, C, r):

@@ -13,6 +13,12 @@ finished lane's state is frozen; here the loop keeps an ``active`` mask and
 updates each lane with ``torch.where``, which gives each lane the iterate
 sequence its unbatched solve takes. The Python ``while`` reads
 ``active.any()`` on the host once per iteration.
+
+Segmented solves (`solve_lp_partial`) stop each lane at an iteration mark
+and return its `IPMState`; fed back with the same LP, the state resumes
+the iterate sequence bit for bit. Warm starts (``warm_start=``) seed the
+loop from a solution-frame iterate through a per-lane safeguard. Both
+serve `runtime/adaptive.py`.
 """
 from __future__ import annotations
 
@@ -51,6 +57,33 @@ class IPMSolution(NamedTuple):
     res_dual: torch.Tensor
     gap: torch.Tensor
     status: torch.Tensor  # STATUS_* code (see status_name)
+
+
+class IPMState(NamedTuple):
+    """Resumable loop state of a segmented solve (`solve_lp_partial`,
+    ``return_state=True`` on the banded solvers), one row per lane.
+
+    Every field lives in the solver's scaled frame (Ruiz + norm scaling),
+    which each call recomputes from the lane's own data alone: fed back
+    with the same LP, the state resumes the exact iterate sequence, so a
+    chunked solve is bitwise the one-shot solve. Treat the fields as
+    opaque; `it` (iterations done) and `done` (the loop's own stop flag:
+    converged, breakdown, divergence or stall) are the ones a caller reads
+    to retire lanes."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    zl: torch.Tensor
+    zu: torch.Tensor
+    best_merit: torch.Tensor
+    best_x: torch.Tensor
+    best_y: torch.Tensor
+    best_zl: torch.Tensor
+    best_zu: torch.Tensor
+    best_it: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    trace: SolveTrace
 
 
 def pin_matmul_precision() -> None:
@@ -143,11 +176,35 @@ def _broadcast_batch(lp, base_ndim):
     )), batch
 
 
+_LP_NDIM = {"A": 2, "b": 1, "c": 1, "l": 1, "u": 1, "c0": 0}
+
+
+def _tree_map(fn, obj):
+    """`fn` applied to every leaf of a (nested) tuple / NamedTuple."""
+    if isinstance(obj, tuple):
+        items = [_tree_map(fn, o) for o in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return fn(obj)
+
+
 def _squeeze_lane(out):
-    """Lane 0 of a batch-of-one result ((IPMSolution[, SolveTrace]))."""
-    if isinstance(out, tuple) and not hasattr(out, "_fields"):
-        return tuple(_squeeze_lane(o) for o in out)
-    return type(out)(*(a[0] for a in out))
+    """Lane 0 of a batch-of-one result (IPMSolution, SolveTrace, IPMState,
+    or a tuple of them)."""
+    return _tree_map(lambda a: a[0], out)
+
+
+def _unsqueeze_lane(obj):
+    """A batch of one from an unbatched warm start or `IPMState`."""
+    return None if obj is None else _tree_map(lambda a: a.unsqueeze(0), obj)
+
+
+def _warm_tensors(warm_start, like):
+    """A warm start ``(x, y, zl, zu)`` (tensors or arrays) as tensors of
+    `like`'s dtype on its device; None stays None."""
+    if warm_start is None:
+        return None
+    return tuple(torch.as_tensor(w, dtype=like.dtype, device=like.device)
+                 for w in warm_start)
 
 
 def solve_lp(
@@ -165,30 +222,69 @@ def solve_lp(
 ):
     """Scale (Ruiz + norm), solve, unscale; one LP. The solve runs on the
     device the LP's tensors live on. `trace=True` returns
-    ``(IPMSolution, SolveTrace)``. See `_solve_scaled` for the core."""
-    _reject_deferred(warm_start=warm_start)
+    ``(IPMSolution, SolveTrace)``. `warm_start` (optional ``(x, y, zl,
+    zu)`` in the solution frame, e.g. a neighbouring point's
+    `IPMSolution` fields) seeds the iteration after the safeguard of
+    `_warm_safeguard`; a rejected seed gives the cold solve bit for bit.
+    See `_solve_scaled` for the core."""
     pin_matmul_precision()
     lpb = LPData(*(a.unsqueeze(0) for a in lp))
     qb = None if q is None else torch.as_tensor(q).unsqueeze(0)
     out = _solve_lp_inner(
         lpb, tol, max_iter, reg_p, reg_d, refine_steps, qb, stall_limit,
         correctors, trace,
+        warm_start=_unsqueeze_lane(_warm_tensors(warm_start, lp.b)),
     )
     out = _squeeze_lane(out)
     return out if trace else out[0]
 
 
-def _solve_lp_inner(lp, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
-                    refine_steps=2, q=None, stall_limit=None, correctors=0,
-                    trace=False):
-    A0, b0, c0v, l0, u0, off0 = lp
-    dtype = A0.dtype
-    if reg_p is None:
-        reg_p = 1e-13 if dtype == torch.float64 else 1e-8
-    if reg_d is None:
-        reg_d = 1e-12 if dtype == torch.float64 else 1e-7
+def solve_lp_partial(
+    lp: LPData,
+    tol: float = 1e-8,
+    max_iter: int = 60,
+    reg_p: float = None,
+    reg_d: float = None,
+    refine_steps: int = 2,
+    q: torch.Tensor = None,
+    stall_limit: int = None,
+    correctors: int = 0,
+    trace: bool = False,
+    warm_start=None,
+    state: IPMState = None,
+    it_stop=None,
+):
+    """Segmented solve: run the Mehrotra loop up to iteration ``it_stop``
+    and return ``(IPMSolution, IPMState)``. Feed ``state`` back with the
+    SAME `lp` to resume where the segment stopped; the chunked iterate
+    sequence is bitwise the one-shot solve's. The solution is final only
+    for lanes whose ``state.done`` is set or whose ``state.it`` reached
+    ``max_iter``; for the others it reports the best iterate so far. With
+    ``trace=True`` the trace rides in ``state.trace``. Batched like
+    `solve_lp_batch` (a leading axis on any field, ``warm_start`` and
+    ``state`` per lane) or one LP. The engine primitive of
+    `runtime/adaptive.py`."""
+    pin_matmul_precision()
+    lpb, batch = _broadcast_batch(lp, _LP_NDIM)
+    warm = _warm_tensors(warm_start, lp.b)
+    if batch is None:
+        lpb = LPData(*(a.unsqueeze(0) for a in lp))
+        warm, state = _unsqueeze_lane(warm), _unsqueeze_lane(state)
+    if q is not None:
+        q = torch.as_tensor(q).to(lpb.b).expand_as(lpb.c)
+    sol, _tr, st = _solve_lp_inner(
+        lpb, tol, max_iter, reg_p, reg_d, refine_steps, q, stall_limit,
+        correctors, trace, warm_start=warm, state0=state, it_stop=it_stop,
+        return_state=True,
+    )
+    return (sol, st) if batch is not None else _squeeze_lane((sol, st))
+
+
+def _scaling(A0, b0, c0v, l0, u0):
+    """Ruiz + norm scaling of each lane, from that lane's data alone:
+    ``(r, cs, b, c, l, u, sig_c, sig_b)`` with the scaled b, c and bounds
+    (before the division by sig) and sig_* of shape (B, 1)."""
     r, cs = _ruiz_scaling(A0)
-    A = A0 * r[..., :, None] * cs[..., None, :]
     b = b0 * r
     # variable substitution x = diag(cs) x~ -> bounds divide by cs
     l = l0 / cs
@@ -202,20 +298,121 @@ def _solve_lp_inner(lp, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
         ),
         min=1.0,
     )[:, None]
+    return r, cs, b, c, l, u, sig_c, sig_b
+
+
+def _solve_lp_inner(lp, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
+                    refine_steps=2, q=None, stall_limit=None, correctors=0,
+                    trace=False, warm_start=None, state0=None, it_stop=None,
+                    return_state=False):
+    A0, b0, c0v, l0, u0, off0 = lp
+    dtype = A0.dtype
+    if reg_p is None:
+        reg_p = 1e-13 if dtype == torch.float64 else 1e-8
+    if reg_d is None:
+        reg_d = 1e-12 if dtype == torch.float64 else 1e-7
+    r, cs, b, c, l, u, sig_c, sig_b = _scaling(A0, b0, c0v, l0, u0)
+    A = A0 * r[..., :, None] * cs[..., None, :]
     q0 = torch.zeros_like(c0v) if q is None else q.to(c0v)
     q_s = q0 * cs * cs * sig_b / sig_c
-    sol, tr = _solve_scaled(
+    warm_s = None
+    if warm_start is not None:
+        # the solution-frame seed in the scaled frame (the inverse of the
+        # unscaling below); the safeguard runs in _solve_scaled
+        warm_s = _warm_scaled(warm_start, r, cs, sig_c, sig_b)
+    out = _solve_scaled(
         LPData(A, b / sig_b, c / sig_c, l / sig_b, u / sig_b, torch.zeros_like(off0)),
         tol, max_iter, reg_p, reg_d, refine_steps, q_s,
         stall_limit=stall_limit, correctors=correctors, trace=trace,
+        warm=warm_s, state0=state0, it_stop=it_stop, return_state=return_state,
     )
+    sol = out[0]
     # unscale: x = cs * x~ * sig_b ; y = sig_c * r * y~ ; z = sig_c/cs * z~
     x = sol.x * cs * sig_b
     y = sol.y * r * sig_c
     zl = sol.zl / cs * sig_c
     zu = sol.zu / cs * sig_c
     obj = (c0v * x).sum(-1) + 0.5 * ((q0 * x) * x).sum(-1) + off0
-    return sol._replace(x=x, y=y, zl=zl, zu=zu, obj=obj), tr
+    return (sol._replace(x=x, y=y, zl=zl, zu=zu, obj=obj), *out[1:])
+
+
+def _warm_scaled(warm, r, cs, sig_c, sig_b):
+    """A solution-frame warm iterate in the scaled frame."""
+    xw, yw, zlw, zuw = warm
+    return xw / (cs * sig_b), yw / (r * sig_c), zlw * cs / sig_c, zuw * cs / sig_c
+
+
+def _warm_safeguard(warm, fl, fu, l_s, u_s):
+    """Safeguarded warm start, per lane, in the scaled frame: clip the seed
+    strictly interior, then reject it whole when clipping moved any
+    coordinate by more than 10% of its bound range (relative for
+    one-sided bounds) or the seed is not finite: such a shift means the
+    seeding solution's active set disagrees, and the cold start converges
+    faster. Returns the clipped pieces and the per-lane accept flag; the
+    caller blends with the cold start."""
+    both = fl & fu
+    xw, yw, zlw, zuw = warm
+    width = u_s - l_s
+    marg = torch.where(both, torch.clamp(0.25 * width, max=1e-4),
+                       torch.full_like(width, 1e-4))
+    inf = torch.full_like(width, float("inf"))
+    lo = torch.where(fl, l_s + marg, -inf)
+    hi = torch.where(fu, u_s - marg, inf)
+    x_w = torch.minimum(torch.maximum(xw, lo), hi)
+    zero = torch.zeros_like(width)
+    zl_w = torch.where(fl, torch.clamp(zlw, min=1e-4), zero)
+    zu_w = torch.where(fu, torch.clamp(zuw, min=1e-4), zero)
+    denom = torch.where(both, torch.clamp(width, min=1e-8), 1.0 + xw.abs())
+    shifted = torch.where(fl | fu, (x_w - xw).abs() / denom, zero)
+    finite_w = (
+        torch.isfinite(xw).all(-1)
+        & torch.isfinite(yw).all(-1)
+        & torch.isfinite(zl_w).all(-1)
+        & torch.isfinite(zu_w).all(-1)
+    )
+    ok_w = finite_w & (_max0(shifted) <= 0.1)
+    return x_w, yw, zl_w, zu_w, ok_w
+
+
+def _warm_replay(lp, warm_start):
+    """The scaling prologue of `_solve_lp_inner` and `_warm_safeguard` on a
+    (possibly batched) LP: ``(scaling, safeguard output, batched?)``."""
+    lpb, batch = _broadcast_batch(lp, _LP_NDIM)
+    warm = _warm_tensors(warm_start, lp.b)
+    if batch is None:
+        lpb = LPData(*(a.unsqueeze(0) for a in lp))
+        warm = _unsqueeze_lane(warm)
+    A0, b0, c0v, l0, u0, _ = lpb
+    scal = _scaling(A0, b0, c0v, l0, u0)
+    r, cs, _b, _c, l, u, sig_c, sig_b = scal
+    l_sc, u_sc = l / sig_b, u / sig_b
+    fl, fu = torch.isfinite(l_sc), torch.isfinite(u_sc)
+    zero = torch.zeros_like(l_sc)
+    guard = _warm_safeguard(
+        _warm_scaled(warm, r, cs, sig_c, sig_b), fl, fu,
+        torch.where(fl, l_sc, zero), torch.where(fu, u_sc, zero),
+    )
+    return scal, guard, batch is not None
+
+
+def warm_start_accept(lp, warm_start):
+    """Would the safeguard ACCEPT this solution-frame seed for this LP?
+    Replays the scaling prologue and the clip / reject test and returns
+    the flag the solver itself computes, without iterating. One LP, or a
+    batch (leading axis on the LP and on the seed) with one flag a lane."""
+    _, guard, batched = _warm_replay(lp, warm_start)
+    return guard[-1] if batched else guard[-1][0]
+
+
+def apply_warm_safeguard(lp, warm_start):
+    """The seed the solver starts from when it accepts: ``((x, y, zl, zu),
+    accepted)``, the clipped / floored iterate mapped back to the solution
+    frame. One LP or a batch, as `warm_start_accept`."""
+    (r, cs, *_, sig_c, sig_b), (x_w, yw, zl_w, zu_w, ok_w), batched = \
+        _warm_replay(lp, warm_start)
+    applied = (x_w * cs * sig_b, yw * r * sig_c, zl_w / cs * sig_c, zu_w / cs * sig_c)
+    out = (applied, ok_w)
+    return out if batched else _squeeze_lane(out)
 
 
 def _solve_scaled(
@@ -231,6 +428,10 @@ def _solve_scaled(
     stall_limit: int = None,
     correctors: int = 0,
     trace: bool = False,
+    warm: tuple = None,
+    state0: IPMState = None,
+    it_stop=None,
+    return_state: bool = False,
 ):
     """Core Mehrotra iteration over a batch of lanes. Returns
     ``(IPMSolution, SolveTrace)``; the trace holds per-iteration relative
@@ -244,7 +445,16 @@ def _solve_scaled(
     all on (B, ·) tensors. Default: dense A of shape (B, M, N).
 
     `d_cap` caps the barrier weight z/x of near-active variables (long f32
-    banded factorization chains need it; the dense path must not cap)."""
+    banded factorization chains need it; the dense path must not cap).
+
+    `warm` = (x, y, zl, zu) per lane in the SCALED frame replaces the cold
+    start after `_warm_safeguard`; a lane whose seed it rejects starts
+    cold. `state0` resumes a previous segment's `IPMState` verbatim;
+    `it_stop` (an int or a per-lane tensor) stops each lane at that
+    iteration count, without setting its `done`, so a host-side loop can
+    retire and compact lanes between segments; `return_state` appends the
+    `IPMState` to the return value. With all four at their defaults the
+    loop is bit for bit the one without them."""
     A, b, c, l, u, c0 = lp
     dtype, device = b.dtype, b.device
     B, M = b.shape
@@ -287,6 +497,10 @@ def _solve_scaled(
     y0 = torch.zeros((B, M), dtype=dtype, device=device)
     z0l = fl.to(dtype)
     z0u = fu.to(dtype)
+    if warm is not None:
+        x_w, yw, zl_w, zu_w, ok_w = _warm_safeguard(warm, fl, fu, l_s, u_s)
+        x0, y0 = _sel(ok_w, x_w, x0), _sel(ok_w, yw, y0)
+        z0l, z0u = _sel(ok_w, zl_w, z0l), _sel(ok_w, zu_w, z0u)
 
     def dot(a, v):
         return (a * v).sum(-1)
@@ -452,13 +666,22 @@ def _solve_scaled(
             )
         return x_n, y_n, zl_n, zu_n, best, it + 1, done, tr
 
-    rp0, rd0, comp0 = residuals(x0, y0, z0l, z0u)
-    it = torch.zeros(B, dtype=torch.int64, device=device)
-    best = (merit_of(rp0, rd0, comp0, x0), x0, y0, z0l, z0u, it)
-    tr = _empty_trace(max_iter if trace else 0, dtype, (B,), device)
-    x, y, zl, zu = x0, y0, z0l, z0u
-    done = torch.zeros(B, dtype=torch.bool, device=device)
-    active = (it < max_iter) & ~done
+    if state0 is None:
+        rp0, rd0, comp0 = residuals(x0, y0, z0l, z0u)
+        it = torch.zeros(B, dtype=torch.int64, device=device)
+        best = (merit_of(rp0, rd0, comp0, x0), x0, y0, z0l, z0u, it)
+        tr = _empty_trace(max_iter if trace else 0, dtype, (B,), device)
+        x, y, zl, zu = x0, y0, z0l, z0u
+        done = torch.zeros(B, dtype=torch.bool, device=device)
+    else:
+        x, y, zl, zu = state0.x, state0.y, state0.zl, state0.zu
+        best = (state0.best_merit, state0.best_x, state0.best_y,
+                state0.best_zl, state0.best_zu, state0.best_it)
+        it, done, tr = state0.it, state0.done, state0.trace
+    it_cap = max_iter
+    if it_stop is not None:
+        it_cap = torch.clamp(torch.as_tensor(it_stop, device=device), max=max_iter)
+    active = (it < it_cap) & ~done
     while bool(active.any()):
         xn, yn, zln, zun, bestn, itn, donen, trn = body(x, y, zl, zu, best, it, tr)
         x, y = _sel(active, xn, x), _sel(active, yn, y)
@@ -467,7 +690,10 @@ def _solve_scaled(
         it = _sel(active, itn, it)
         done = _sel(active, donen, done)
         tr = SolveTrace(*(_sel(active, n, o) for n, o in zip(trn, tr)))
-        active = (it < max_iter) & ~done
+        active = (it < it_cap) & ~done
+    state = None
+    if return_state:
+        state = IPMState(x, y, zl, zu, *best, it=it, done=done, trace=tr)
     _, x, y, zl, zu, _ = best
     rp, rd, comp = residuals(x, y, zl, zu)
     # convergence from the final residuals, at 100x tol (breakdown can stop
@@ -489,7 +715,7 @@ def _solve_scaled(
         gap=gap_rel,
         status=_classify_exit(conv, rp_rel, rd_rel),
     )
-    return sol, tr
+    return (sol, tr, state) if return_state else (sol, tr)
 
 
 def _classify_exit(conv, rp_rel, rd_rel):
@@ -510,17 +736,16 @@ def _classify_exit(conv, rp_rel, rd_rel):
 def solve_lp_batch(lp: LPData, warm_start=None, **kw):
     """Solve a batch of LPs given by a leading axis on any LP field; fields
     without it are shared by every lane (e.g. one A with per-scenario b/c).
-    Lane ``i`` gives what `solve_lp` of lane ``i`` gives."""
-    _reject_deferred(warm_start=warm_start)
-    lpb, batch = _broadcast_batch(
-        lp, {"A": 2, "b": 1, "c": 1, "l": 1, "u": 1, "c0": 0}
-    )
+    Lane ``i`` gives what `solve_lp` of lane ``i`` gives. `warm_start`,
+    when given, is a per-lane ``(x, y, zl, zu)`` (leading axis = batch),
+    safeguarded per lane as in `solve_lp`."""
+    lpb, batch = _broadcast_batch(lp, _LP_NDIM)
     if batch is None:
-        return solve_lp(lp, **kw)
+        return solve_lp(lp, warm_start=warm_start, **kw)
     pin_matmul_precision()
     q = kw.pop("q", None)
     if q is not None:
         q = torch.as_tensor(q).to(lpb.b).expand_as(lpb.c)
-    out = _solve_lp_inner(lpb, q=q, **kw)
+    out = _solve_lp_inner(lpb, q=q, warm_start=_warm_tensors(warm_start, lp.b), **kw)
     trace = kw.get("trace", False)
     return out if trace else out[0]

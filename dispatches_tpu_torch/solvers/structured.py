@@ -37,9 +37,10 @@ from .ipm import (
     _chol,
     _lane,
     _max0,
-    _reject_deferred,
     _solve_scaled,
     _squeeze_lane,
+    _unsqueeze_lane,
+    _warm_tensors,
     pin_matmul_precision,
 )
 
@@ -688,9 +689,12 @@ def _solve_banded(
     meta, blp, tol, max_iter, reg_p, reg_d, refine_steps, d_cap, slabs=None,
     chol_dtype=None, kkt_refine=0, fac_d_cap=None, inv_factors=False,
     sweep_backend="scan", correctors=0, trace=False, factor_dtype=None,
+    warm_start=None, state=None, it_stop=None, return_state=False,
 ):
     """The batched banded solve: every field of `blp` carries the batch
-    axis. Returns (IPMSolution, SolveTrace), both batched."""
+    axis, and so do `warm_start` and `state` when given. Returns
+    (IPMSolution, SolveTrace), both batched, and the `IPMState` third with
+    `return_state`."""
     Ad, As, Bb, b, c, cb, lt, ut, lb, ub, c0 = blp
     B, Tb, mB, nB = Ad.shape
     p = meta.p
@@ -721,16 +725,37 @@ def _solve_banded(
         kkt_refine=kkt_refine, fac_d_cap=fac_d_cap, inv_factors=inv_factors,
         sweep_backend=sweep_backend, factor_dtype=factor_dtype,
     )
-    sol, tr = _solve_scaled(
+    col_pos = torch.as_tensor(meta.col_pos, device=Ad.device)
+    warm_s = None
+    if warm_start is not None:
+        # solution-frame seed (reduced column order, banded row order) into
+        # the flat scaled frame: scatter through col_pos, the inverse of
+        # the gather below; padding slots get 0, which the safeguard clips
+        # inside their inert [0, 1] box
+        xw, yw, zlw, zuw = warm_start
+
+        def scatter(v):
+            out = torch.zeros(B, nt + p, dtype=Ad.dtype, device=Ad.device)
+            out[:, col_pos] = v
+            return out
+
+        warm_s = (
+            scatter(xw) / (cs_all * sig_b),
+            (yw.reshape(B, Tb, mB) / (r * sig_c[:, :, None])).reshape(B, -1),
+            scatter(zlw) * cs_all / sig_c,
+            scatter(zuw) * cs_all / sig_c,
+        )
+    out = _solve_scaled(
         LPData(
             A=None, b=b_s / sig_b, c=c_flat / sig_c, l=l_flat / sig_b,
             u=u_flat / sig_b, c0=torch.zeros_like(c0),
         ),
         tol, max_iter, reg_p, reg_d, refine_steps, None,
         ops=ops, d_cap=d_cap, correctors=correctors, trace=trace,
+        warm=warm_s, state0=state, it_stop=it_stop, return_state=return_state,
     )
+    sol = out[0]
     # unscale and map back to the CompiledLP's reduced column order
-    col_pos = torch.as_tensor(meta.col_pos, device=Ad.device)
     x_flat = sol.x * cs_all * sig_b
     y = (sol.y.reshape(B, Tb, mB) * r * sig_c[:, :, None]).reshape(B, -1)
     zl = (sol.zl / cs_all * sig_c)[:, col_pos]
@@ -740,7 +765,7 @@ def _solve_banded(
         + (cb * x_flat[:, nt:]).sum(-1)
         + c0
     )
-    return sol._replace(x=x_flat[:, col_pos], y=y, zl=zl, zu=zu, obj=obj), tr
+    return (sol._replace(x=x_flat[:, col_pos], y=y, zl=zl, zu=zu, obj=obj), *out[1:])
 
 
 class SmallTF32Warning(UserWarning):
@@ -765,7 +790,7 @@ def _options(meta, dtype, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
              refine_steps=2, d_cap=None, slabs=None, mesh=None,
              mesh_axis="time", chol_dtype=None, kkt_refine=0,
              inv_factors=False, sweep_backend="scan", correctors=0,
-             trace=False, warm_start=None, state=None, it_stop=None,
+             trace=False, state=None, it_stop=None,
              return_state=False, factor_dtype=None):
     """Resolve the solver options of `solve_lp_banded` into `_solve_banded`
     keyword arguments, with the JAX package's defaults and guards."""
@@ -774,8 +799,6 @@ def _options(meta, dtype, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
             "mesh= shards time slabs over devices; the port runs one "
             "device and has no such axis"
         )
-    _reject_deferred(warm_start=warm_start, state=state, it_stop=it_stop,
-                     return_state=return_state)
     if isinstance(chol_dtype, str):
         chol_dtype = getattr(torch, chol_dtype)
     if isinstance(factor_dtype, str):
@@ -817,10 +840,20 @@ def _options(meta, dtype, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
         chol_dtype=chol_dtype, kkt_refine=kkt_refine, fac_d_cap=fac_d_cap,
         inv_factors=inv_factors, sweep_backend=sweep_backend,
         correctors=correctors, trace=trace, factor_dtype=factor_dtype,
+        state=state, it_stop=it_stop, return_state=return_state,
     )
 
 
-def solve_lp_banded(meta: TimeStructure, blp: BandedLP, **kw):
+def _returned(out, opts):
+    """`_solve_banded`'s (sol, trace[, state]) as the public solvers return
+    it: the trace only with ``trace=True``, the state with
+    ``return_state=True``."""
+    keep = (True, opts["trace"], opts["return_state"])
+    out = tuple(o for o, k in zip(out, keep) if k)
+    return out if len(out) > 1 else out[0]
+
+
+def solve_lp_banded(meta: TimeStructure, blp: BandedLP, warm_start=None, **kw):
     """Solve one time-banded LP by the block-tridiagonal IPM. Returns an
     `IPMSolution` with ``x`` in the CompiledLP's reduced column order and
     ``y`` in the banded row order (``(IPMSolution, SolveTrace)`` with
@@ -830,14 +863,23 @@ def solve_lp_banded(meta: TimeStructure, blp: BandedLP, **kw):
     ``sweep_backend`` ("scan" | "fused": the fused CUDA sweep kernel,
     which implies inverse factors and needs f32 factor work),
     ``correctors`` (Gondzio) and ``trace``. ``mesh`` raises ValueError (one
-    device); ``warm_start``, ``state``, ``it_stop`` and ``return_state``
-    raise NotImplementedError."""
+    device).
+
+    ``warm_start`` = (x, y, zl, zu) in the solution frame (reduced column
+    order, banded row order: a neighbour's `IPMSolution` fields) seeds the
+    iteration with the safeguarded fallback of `ipm.solve_lp`.
+    ``state`` / ``it_stop`` / ``return_state`` are the segmented solve of
+    `ipm.solve_lp_partial`: run to iteration ``it_stop``, return the
+    resumable `IPMState` after the usual return value, feed it back with
+    the same data to continue bitwise. All default to off."""
     pin_matmul_precision()
     _warn_small_T_f32(meta, blp.Ad.dtype)
     opts = _options(meta, blp.Ad.dtype, **kw)
+    opts["state"] = _unsqueeze_lane(opts["state"])
     blp1 = BandedLP(*(a.unsqueeze(0) for a in blp))
-    out = _squeeze_lane(_solve_banded(meta, blp1, **opts))
-    return out if opts["trace"] else out[0]
+    warm = _unsqueeze_lane(_warm_tensors(warm_start, blp.b))
+    out = _squeeze_lane(_solve_banded(meta, blp1, warm_start=warm, **opts))
+    return _returned(out, opts)
 
 
 def solve_lp_banded_batch(
@@ -847,7 +889,8 @@ def solve_lp_banded_batch(
     (fields without it are shared), all lanes resident on one device —
     the batched analogue of the reference's per-scenario rebuild + CBC
     loop (`wind_battery_LMP.py:195-267`). Lane ``i`` gives what
-    `solve_lp_banded` of lane ``i`` gives."""
+    `solve_lp_banded` of lane ``i`` gives; ``warm_start`` and ``state``
+    carry the batch axis too."""
     if sharding is not None or kw.get("mesh") is not None:
         raise ValueError(
             "solve_lp_banded_batch runs every lane on one device; "
@@ -858,9 +901,9 @@ def solve_lp_banded_batch(
         return solve_lp_banded(meta, blp, warm_start=warm_start, **kw)
     pin_matmul_precision()
     _warn_small_T_f32(meta, blp.Ad.dtype)
-    opts = _options(meta, blp.Ad.dtype, warm_start=warm_start, **kw)
-    out = _solve_banded(meta, blpb, **opts)
-    return out if opts["trace"] else out[0]
+    opts = _options(meta, blp.Ad.dtype, **kw)
+    warm = _warm_tensors(warm_start, blp.b)
+    return _returned(_solve_banded(meta, blpb, warm_start=warm, **opts), opts)
 
 
 def optimal_value_banded(

@@ -11,9 +11,13 @@ Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
 Sweeps checkpoint converged points to the ResultStore (``--out`` /
 ``store_path``, `runtime/native.py`) and SKIP points already in it on a
 re-run (the reference's `result_*.json` skip idiom,
-`run_pricetaker_wind_PEM.py:43-50`). Not ported yet, and refused rather
-than ignored: journal/tracer spans, cost records, neighbour warm starts,
-adaptive batching and remediation.
+`run_pricetaker_wind_PEM.py:43-50`). ``yearsweep`` takes ``--warm-starts``
+(each scenario seeded from its nearest solved neighbour in the previous
+batch), ``--adaptive`` (converged lanes retire and the batch compacts,
+`runtime/adaptive.py`) and ``--remedy`` (the remediation ladder on
+unhealthy lanes, `runtime/remedy.py`; needs ``--adaptive``); none of them
+changes the store keys. Not ported yet, and refused rather than ignored:
+journal/tracer spans, per-iteration traces in the sweep and cost records.
 """
 from __future__ import annotations
 
@@ -270,14 +274,31 @@ def run_year_sweep(
     other answers than the JAX package's f32 one, so its keys carry one
     component more ("factor_dtype=float64"): a default port run never
     skips a scenario a JAX run stored, while ``factor_dtype="float32"``
-    shares the JAX package's keys."""
+    shares the JAX package's keys.
+
+    ``warm_starts=True`` sorts the pending scenarios by LMP scale and seeds
+    each lane of a batch from its nearest solved neighbour (by scale) in
+    the previous batch, through the solver's safeguard (a rejected seed
+    starts cold); iterations saved against the cold first batch's mean go
+    to ``warm_start_iters_saved_total``. ``adaptive=True`` solves each
+    batch with `runtime.adaptive.solve_lp_banded_adaptive` (converged
+    lanes retire, the batch compacts down the bucket ladder) and puts its
+    stats in each record's ``adaptive_stats``. ``remedy`` (needs
+    `adaptive`) runs the `runtime.remedy` ladder on lanes that retire
+    unhealthy. Records say whether their batch was ``warm_started``. None
+    of the three changes the store keys; all default off, leaving the
+    plain solve untouched."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import HybridDesign, build_pricetaker
+    from ..obs import metrics as obs_metrics
+    from ..runtime.adaptive import solve_lp_banded_adaptive
     from ..runtime.telemetry import batch_stats
     from ..solvers.structured import extract_time_structure, solve_lp_banded_batch
 
-    _reject_deferred(tracer=tracer, trace=trace, cost=cost,
-                     warm_starts=warm_starts, adaptive=adaptive, remedy=remedy)
+    _reject_deferred(tracer=tracer, trace=trace, cost=cost)
+    if remedy and not adaptive:
+        raise ValueError("remedy requires adaptive=True (the ladder acts on "
+                         "the lanes the adaptive solve retires)")
     tdtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     data = P.load_rts303()
     design = HybridDesign(
@@ -315,9 +336,14 @@ def run_year_sweep(
         return ks
 
     pending = [k for k in range(scenarios) if not any(key in done for key in keys(k))]
+    if warm_starts:
+        # neighbour seeding wants adjacent scales in adjacent batches
+        pending.sort(key=lambda k: scales[k])
     if len(pending) < scenarios and verbose:
         print(f"{scenarios - len(pending)} scenarios checkpointed, skipping")
     out = []
+    prev_sols = None  # (scales, x, y, zl, zu) of the previous batch, host copies
+    cold_iter_mean = None  # the first (cold) batch's mean iterations
     for lo in range(0, len(pending), batch):
         todo = pending[lo : lo + batch]
         # pad to the fixed batch width, as the JAX runner does
@@ -328,15 +354,39 @@ def run_year_sweep(
         )
         params = {"lmp": lmps, "wind_cf": cf}
         blp_b = meta.instantiate(params, dtype=tdtype, device=device)
+        warm_b = None
+        if warm_starts and prev_sols is not None:
+            # the nearest solved neighbour (by LMP scale) seeds each lane
+            ps, *fields = prev_sols
+            nn = [int(np.argmin(np.abs(ps - scales[k]))) for k in padded]
+            warm_b = tuple(torch.as_tensor(a[nn], device=device) for a in fields)
+        ad_stats = {} if adaptive else None
         if lmps.device.type == "cuda":
             torch.cuda.synchronize(lmps.device)
         t0 = time.perf_counter()
-        sol = solve_lp_banded_batch(meta, blp_b, **solver_kw)
+        if adaptive:
+            sol = solve_lp_banded_adaptive(meta, blp_b, warm_start=warm_b, stats=ad_stats,
+                                           remedy=remedy, **solver_kw)
+        else:
+            sol = solve_lp_banded_batch(meta, blp_b, warm_start=warm_b, **solver_kw)
         convs = sol.converged.cpu().numpy()[: len(todo)]
         solve_wall = time.perf_counter() - t0
         npvs = prog.eval_expr("NPV", sol.x, params).cpu().numpy()[: len(todo)]
         stats = batch_stats(sol)
         iters_b = sol.iterations.cpu().numpy()[: len(todo)]
+        if warm_b is None:
+            if cold_iter_mean is None:
+                cold_iter_mean = float(iters_b.mean())
+        else:
+            # against the cold first batch: an estimate (the cold path is not
+            # re-solved), consistent across the batches of one sweep
+            saved = cold_iter_mean * len(todo) - float(iters_b.sum())
+            if saved > 0:
+                obs_metrics.inc("warm_start_iters_saved_total", saved,
+                                runner="yearsweep", source="neighbor")
+        if warm_starts:
+            prev_sols = (np.asarray(scales)[padded],
+                         *(getattr(sol, f).cpu().numpy() for f in ("x", "y", "zl", "zu")))
         for j, k in enumerate(todo):
             rec = {
                 "scenario": k,
@@ -346,16 +396,20 @@ def run_year_sweep(
                 "iterations": int(iters_b[j]),
                 "solver_stats": stats,
                 "batch_seconds": solve_wall,
+                "warm_started": warm_b is not None,
             }
+            if adaptive:
+                rec["adaptive_stats"] = ad_stats
             out.append(rec)
             if store and rec["converged"]:
                 store.append(keys(k)[0], [rec["lmp_scale"], rec["NPV"], 1.0])
         if verbose:
             print(
-                f"[{todo[0]}..{todo[-1]}] {len(todo)} year-LPs: "
+                f"[{todo[0]}..{todo[-1]}] {len(todo)} year-LPs"
+                f"{' (warm-started)' if warm_b is not None else ''}: "
                 f"converged {int(convs.sum())}/{len(todo)}, "
                 f"NPV ${npvs.min():.3e}..${npvs.max():.3e}, "
-                f"{solve_wall:.1f} s"
+                f"iterations {iters_b.tolist()}, {solve_wall:.1f} s"
             )
     n_unconv = sum(1 for r in out if not r["converged"])
     if n_unconv and verbose:
@@ -397,8 +451,26 @@ def main(argv=None):
     ys.add_argument("--inv-factors", action="store_true",
                     help="store block factors as inverses")
     ys.add_argument("--out", default=None, help="ResultStore checkpoint path")
+    ys.add_argument(
+        "--warm-starts", action="store_true",
+        help="seed each scenario from its nearest solved neighbour in the "
+        "previous batch (safeguarded; falls back to cold per lane)",
+    )
+    ys.add_argument(
+        "--adaptive", action="store_true",
+        help="adaptive batching: retire converged lanes between iteration "
+        "chunks and compact the batch (runtime.adaptive)",
+    )
+    ys.add_argument(
+        "--remedy", action="store_true",
+        help="arm the remediation ladder on unhealthy adaptive lanes (cold "
+        "retry -> regularize -> f64; runtime.remedy; requires --adaptive)",
+    )
 
     args = p.parse_args(argv)
+    if getattr(args, "remedy", False) and not args.adaptive:
+        p.error("--remedy requires --adaptive (the ladder acts on the "
+                "lanes the adaptive solve retires)")
     if args.cmd == "pricetaker":
         run_pricetaker(
             topology=args.topology, hours=args.hours, h2_prices=args.h2_price,
@@ -415,7 +487,8 @@ def main(argv=None):
             h2_price=args.h2_price, seed=args.seed, dtype=args.dtype,
             mixed_precision=not args.no_mixed_precision,
             correctors=args.correctors, inv_factors=args.inv_factors,
-            store_path=args.out, device=args.device,
+            store_path=args.out, device=args.device, warm_starts=args.warm_starts,
+            adaptive=args.adaptive, remedy=True if args.remedy else None,
         )
     return 0
 

@@ -21,6 +21,7 @@ from dispatches_tpu.solvers.ipm import solve_lp as j_solve_lp
 from dispatches_tpu.solvers.ipm import solve_lp_batch as j_solve_lp_batch
 from dispatches_tpu_torch.convert import lp_from_numpy
 from dispatches_tpu_torch.obs.trace import SolveTrace
+from dispatches_tpu_torch.runtime.adaptive import solve_lp_adaptive
 from dispatches_tpu_torch.solvers.ipm import (
     IPMSolution,
     solve_lp,
@@ -105,4 +106,4 @@ def test_batch_lanes_and_trace_match_jax():
         assert float(one.obj) == pytest.approx(float(got.obj[i]), rel=1e-10)
         assert tuple(one_tr.gap.shape) == (max_iter,)
     with pytest.raises(NotImplementedError):
-        solve_lp(tlp, warm_start=(tlp.c, tlp.b, tlp.c, tlp.c))
+        solve_lp_adaptive(tbatch, conformance=True)

@@ -24,6 +24,7 @@ from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
     build_pricetaker,
 )
 from dispatches_tpu_torch.convert import banded_lp_from_numpy
+from dispatches_tpu_torch.runtime.adaptive import solve_lp_banded_adaptive
 from dispatches_tpu_torch.solvers import structured as TS
 
 DATA = JP.load_rts303()
@@ -148,7 +149,7 @@ def test_guards_match_jax(case120):
     with pytest.raises(ValueError, match="sharding"):
         TS.solve_lp_banded_batch(tmeta, tblp, sharding=object())
     with pytest.raises(NotImplementedError):
-        TS.solve_lp_banded(tmeta, tblp, warm_start=(tblp.c,) * 4)
+        solve_lp_banded_adaptive(tmeta, tblp, conformance=True)
     # pure f32 data IS allowed under "fused" (one iteration suffices here)
     b32 = TS.BandedLP(*(a.float() for a in tblp))
     with pytest.warns(TS.SmallTF32Warning):
