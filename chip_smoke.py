@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phases kernel  # build + kernel checks only
+    python3 chip_smoke.py --phases pdhg    # the PDHG lane alone
 
 Phases (any failure raises, and the script exits non-zero):
   1. device   require CUDA; print the card's name and power limit
@@ -76,7 +77,42 @@ Phases (any failure raises, and the script exits non-zero):
                   (reg_p = reg_d = 0) between two healthy ones through
                   `solve_lp_adaptive(remedy=RemedyPolicy(allow_lane_switch=
                   False))` recovers at "regularize", the others untouched.
+              (e) (a)'s run passes conformance=True: its lanes bitwise
+                  those of the same run without it, the certificates
+                  printed.
               Without the year phase, (a) runs the year phase's sweep first.
+  8. pdhg     the PDHG/PDLP lane on the card:
+              (a) `instantiate_coo` of the weekly design LP (52 weeks)
+                  twice on the card: equal fingerprints, within 1 ulp of
+                  the CPU's;
+              (b) the 52 weekly LPs (rts303, T=168, f64) through
+                  `solve_lp_pdhg_adaptive` (PDLP controls, tol 1e-6,
+                  100,000 iterations, chunks of 2,000, conformance=True)
+                  and the dense IPM batch (tol 1e-8), weeks 0 and the
+                  slowest through HiGHS: week 0 converged, every
+                  converged lane within 1e-4 (1 + |obj_ipm|) of the IPM
+                  and its residual certificates within the default
+                  ConformancePolicy (comp and gap printed: PDHG does not
+                  stop on them), the solver's residuals equal to the
+                  certificates (rel 1e-9); the
+                  card against the port's CPU PDHG over two check periods
+                  (controls off within 1e-9); the first 8 weeks in chunks
+                  of 2,000 bitwise a one-shot solve;
+              (c) the year phase's 8 LMP scenarios x 8,760 h through
+                  `solve_lp_pdhg` with the controls at a fixed budget of
+                  20,000 iterations, traced: finite, residuals equal to
+                  the certificates, two 1,000-iteration runs bitwise
+                  equal; printed: the residual trajectory, the NPVs
+                  against the year phase's, ms per iteration, peak memory;
+              (d) the remedy ladder's lane switch both ways: a dense
+                  lane capped below its IPM iteration count recovers at
+                  "lane_switch" through PDHG (default RemedyPolicy, the
+                  other lanes bitwise), a stuck SparseLP through the IPM;
+              (f) profiled windows of (b) and (c): device-busy share,
+                  launches per PDHG iteration, device time by op, and
+                  A x / Aᵀ y against their HBM bound.
+              The phase's gates are raised at its end, after every
+              number has printed.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -676,7 +712,8 @@ def _adaptive_year(year_records, hours):
     stats = {}
     t0 = time.perf_counter()
     sol = solve_lp_banded_adaptive(meta, blp, chunk_iters=ADAPTIVE_CHUNK,
-                                   ladder_base=ADAPTIVE_LADDER, stats=stats, **kw)
+                                   ladder_base=ADAPTIVE_LADDER, stats=stats,
+                                   conformance=True, **kw)
     conv = sol.converged.tolist()
     wall = time.perf_counter() - t0
     launches = chain_sweep.launches
@@ -722,9 +759,20 @@ def _adaptive_year(year_records, hours):
     else:
         log(f"[adaptive] (a) lanes {early}, harvested at bucket {stats['buckets'][0]}: "
             "NPVs bitwise the year phase's")
+    # (e) the conformance plane only reads: the same run without it
+    off = solve_lp_banded_adaptive(meta, blp, chunk_iters=ADAPTIVE_CHUNK,
+                                   ladder_base=ADAPTIVE_LADDER, **kw)
+    same = _all_same(sol, off)
+    conf = stats["conformance"]
+    log(f"[adaptive] (e) conformance=True: {sum(ln['ok'] for ln in conf['lanes'])} of "
+        f"{len(conf['lanes'])} lanes pass the default policy, worst {conf['worst']}; "
+        f"lanes {'bitwise equal to' if same else 'DIFFER from'} the same run without it")
+    if not same:
+        raise AssertionError("conformance=True changed the adaptive year lanes")
     return dict(wall_s=wall, stats=stats, launches=launches, launches_by_chains=by_chains,
                 rel_max=float(rel.max()), bitwise_lanes=early, bucket0_diff=diff,
-                run_to_run=run_to_run, plain_lane_iterations=plain)
+                run_to_run=run_to_run, plain_lane_iterations=plain,
+                conformance_worst=conf["worst"])
 
 
 def _adaptive_cli(hours, highs_npv=None):
@@ -832,11 +880,418 @@ def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
     return dict(year=a, cli=b, remedy=c)
 
 
+PDLP_KW = dict(adaptive_restarts=True, primal_weight=True, linesearch=True)
+PDHG_TOL = 1e-6
+PDHG_MAX_ITER = 100_000
+PDHG_CHUNK = 2000
+PDHG_YEAR_ITERS = 20_000  # (c): a fixed budget, not a convergence run
+PDHG_REPEAT_ITERS = 1000  # (c): two runs of this many, bitwise equal
+PDHG_RESUME_ITERS = 6000  # (b): one-shot vs chunks of PDHG_CHUNK, 8 weeks
+OBJ_AGREE = 1e-4  # bench.py's obj_agree band: |obj - obj_ipm| <= 1e-4 (1 + |obj_ipm|)
+CERT_RTOL = 1e-9  # solver residuals vs the certificates
+
+
+def _same(a, b):
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _all_same(x, y):
+    """Bitwise equality of two NamedTuples of tensors (nested ones too)."""
+    return all(_all_same(a, b) if isinstance(a, tuple) else _same(a, b) for a, b in zip(x, y))
+
+
+def _ulps(a, b):
+    """Largest distance between two tensors in units of the last place."""
+    a, b = a.double().cpu(), b.double().cpu()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(a[~ok], b[~ok]):
+        return float("inf")
+    spacing = torch.nextafter(a.abs(), torch.tensor(float("inf"), dtype=torch.float64)) - a.abs()
+    d = ((a - b).abs() / spacing)[ok]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _product_bound_ms(nnz, B, n_in, n_out):
+    """Least time of one COO product over a lane batch sharing one pattern:
+    its values (f64) and row and column indices (int32) read once, the B
+    input vectors read once and the B outputs written once, at HBM rate."""
+    return (nnz * (8 + 4 + 4) + 8 * B * (n_in + n_out)) / HBM_BYTES_PER_S * 1e3
+
+
+def _pdhg_profile(tag, lp, st, iters):
+    """Device time of `iters` more PDLP iterations resumed from `st` (two
+    windows, `iters` apart, so the per-iteration launch count excludes the
+    segment's set-up), and the sparse products against their bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispatches_tpu_torch.solvers.pdhg import _Op, _Pattern, solve_lp_pdhg
+
+    def window(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve_lp_pdhg(lp, tol=0.0, max_iter=PDHG_MAX_ITER, state=st,
+                          it_stop=int(st.it.max()) + n, return_state=True, **PDLP_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us, launches, by_op = 0.0, 0, {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            dev_us += us
+            launches += e.count
+            by_op[e.key[:70]] = by_op.get(e.key[:70], 0.0) + us
+        return wall, dev_us, launches, by_op
+
+    window(iters)  # warm
+    _, _, n1, _ = window(iters)
+    w2, d2, n2, by_op = window(2 * iters)
+    per_it = (n2 - n1) / iters
+    busy = d2 / 1e6 / w2 if w2 else float("nan")
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[pdhg] ({tag}) profiled window of {2 * iters} iterations: wall {w2:.3f} s "
+        f"({w2 / (2 * iters) * 1e3:.3f} ms per iteration), device busy {busy:.3f}, "
+        f"{n2} launches, {per_it:.1f} per iteration (difference of the {iters}- and "
+        f"{2 * iters}-iteration windows)")
+    for name, us in top:
+        log(f"[pdhg] ({tag})   {us / 1e3:9.2f} ms  {name}")
+    if d2 == 0:
+        log(f"[pdhg] ({tag}) the profiler saw no device time: busy share not measured")
+    # the two products alone, on the solver's tables for these values
+    B, M, N = lp.b.shape[0], lp.b.shape[-1], lp.c.shape[-1]
+    vals = lp.vals if lp.vals.dim() == 2 else lp.vals.unsqueeze(0)
+    op = _Op(_Pattern(lp.rows, lp.cols, M, N, lp.b.device), vals)
+    x = torch.rand(B, N, dtype=lp.b.dtype, device=lp.b.device)
+    y = torch.rand(B, M, dtype=lp.b.dtype, device=lp.b.device)
+    nnz = lp.rows.shape[0]
+    prod = {}
+    for name, fn, n_in, n_out in (("A x", lambda: op.mv(x), N, M),
+                                  ("A^T y", lambda: op.rmv(y), M, N)):
+        ms = _time_ms(fn, 50)
+        bms = _product_bound_ms(nnz, B, n_in, n_out)
+        prod[name] = dict(ms=ms, bound_ms=bms, share_of_bound=bms / ms)
+        log(f"[pdhg] ({tag}) {name}: {ms:.4f} ms, HBM bound {bms:.4f} ms "
+            f"({bms / ms:.3f} of it; {nnz} entries, {B} lanes)")
+    return dict(window_iters=2 * iters, wall_s=w2, device_busy=busy, launches=n2,
+                launches_per_iteration=per_it, top_ops=top, products=prod)
+
+
+_FAILS = []
+
+
+def _fail(msg):
+    """A failed gate of the pdhg phase: logged now, raised at the phase's end
+    (after every measurement of the phase has been printed)."""
+    log(f"[pdhg] GATE FAILED: {msg}")
+    _FAILS.append(msg)
+
+
+def _pdhg_card_vs_cpu(slp, weeks=4, iters=400):
+    """The card's PDHG against the port's own on the CPU, 4 weeks, two check
+    periods: controls off within 1e-9 (no near-tie decides a branch there),
+    controls on printed (the line search's accept tests part the two)."""
+    from dispatches_tpu_torch.solvers.pdhg import solve_lp_pdhg
+
+    sub = slp._replace(b=slp.b[:weeks], c=slp.c[:weeks], c0=slp.c0[:weeks])
+    cpu = type(sub)(*(a.cpu() for a in sub))
+    rel = {}
+    for name, kw in (("off", {}), ("on", PDLP_KW)):
+        a = solve_lp_pdhg(sub, tol=0.0, max_iter=iters, **kw)
+        b = solve_lp_pdhg(cpu, tol=0.0, max_iter=iters, **kw)
+        rel[name] = max(float((a.x.cpu() - b.x).abs().max() / b.x.abs().max()),
+                        float((a.y.cpu() - b.y).abs().max() / b.y.abs().max()))
+    log(f"[pdhg] (b) card vs the port on the CPU, {weeks} weeks x {iters} iterations: "
+        f"max rel difference of x, y with the controls off {rel['off']:.2e}, on {rel['on']:.2e}")
+    if not rel["off"] <= 1e-9:
+        _fail(f"the card's PDHG differs from the CPU's by {rel['off']:.3e} (controls off)")
+    return rel
+
+
+def _pdhg_instantiate(prog, params):
+    """(a): instantiate_coo on the card, twice, against the CPU's."""
+    from dispatches_tpu_torch.core.program import lp_fingerprint
+
+    g1 = prog.instantiate_coo(params, device="cuda")
+    g2 = prog.instantiate_coo(params, device="cuda")
+    cpu = prog.instantiate_coo({k: v.cpu() for k, v in params.items()}, device="cpu")
+    f1, f2, fc = lp_fingerprint(g1), lp_fingerprint(g2), lp_fingerprint(cpu)
+    ulps = {n: _ulps(a, b) for n, a, b in zip(cpu._fields, g1, cpu)}
+    log(f"[pdhg] (a) instantiate_coo on the card: fingerprints {f1[:16]} / {f2[:16]}, "
+        f"CPU {fc[:16]} ({'equal' if f1 == fc else 'differ'}); ulps vs the CPU {ulps}")
+    if f1 != f2:
+        raise AssertionError("instantiate_coo on the card is not repeatable")
+    if max(ulps.values()) > 1:
+        raise AssertionError(f"instantiate_coo on the card vs the CPU: {ulps} ulps")
+    return g1, dict(fingerprint_equal_cpu=f1 == fc, ulps=ulps)
+
+
+def _pdhg_weekly():
+    """(a) and (b): the 52 weeks of rts303 through the adaptive PDLP lane,
+    against the dense IPM batch and HiGHS."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.obs.conformance import ConformancePolicy
+    from dispatches_tpu_torch.runtime.adaptive import solve_lp_pdhg_adaptive
+    from dispatches_tpu_torch.solvers.ipm import solve_lp_batch
+    from dispatches_tpu_torch.solvers.pdhg import solve_lp_pdhg
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+
+    T = 168
+    prog, _ = build_pricetaker(HybridDesign(
+        T=T, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    data = P.load_rts303()
+    lmp, cf = data["da_lmp"].reshape(52, T), data["da_wind_cf"].reshape(52, T)
+    params = {"lmp": torch.as_tensor(lmp, device="cuda"),
+              "wind_cf": torch.as_tensor(cf, device="cuda")}
+    slp, inst = _pdhg_instantiate(prog, params)
+
+    lp = prog.instantiate(params, device="cuda")
+    solve_lp_batch(lp, tol=1e-8, max_iter=60)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ipm = solve_lp_batch(lp, tol=1e-8, max_iter=60)
+    torch.cuda.synchronize()
+    ipm_s = time.perf_counter() - t0
+    if not bool(ipm.converged.all()):
+        raise AssertionError(f"weekly IPM lanes not converged: {ipm.converged.tolist()}")
+
+    stats = {}
+    t0 = time.perf_counter()
+    sol = solve_lp_pdhg_adaptive(slp, tol=PDHG_TOL, max_iter=PDHG_MAX_ITER,
+                                 chunk_iters=PDHG_CHUNK, conformance=True, stats=stats,
+                                 **PDLP_KW)
+    torch.cuda.synchronize()
+    pdhg_s = time.perf_counter() - t0
+    conv = sol.converged.cpu().numpy()
+    iters = sol.iterations.tolist()
+    obj, obj_ipm = sol.obj.cpu().numpy(), ipm.obj.cpu().numpy()
+    diff = np.abs(obj - obj_ipm)
+    band = OBJ_AGREE * (1.0 + np.abs(obj_ipm))
+    lanes = stats["conformance"]["lanes"]
+    certs = {f: np.array([ln[f] for ln in lanes]) for f in ("res_primal", "res_dual")}
+    own = {"res_primal": sol.res_primal.cpu().numpy(), "res_dual": sol.res_dual.cpu().numpy()}
+    cert_rel = max(float(np.max(np.abs(own[f] - certs[f]) / np.maximum(np.abs(certs[f]), 1e-300)))
+                   for f in certs)
+    slow = int(np.argmax(iters))
+    log(f"[pdhg] (b) 52 weekly LPs (T={T}, {slp.rows.shape[0]} entries) through "
+        f"solve_lp_pdhg_adaptive (tol {PDHG_TOL}, PDLP controls, chunks of {PDHG_CHUNK}, "
+        f"conformance): {int(conv.sum())} of 52 converged in {pdhg_s:.2f} s against the "
+        f"dense IPM batch's {ipm_s:.2f} s (tol 1e-8, iterations {ipm.iterations.max().item()})")
+    log(f"[pdhg] (b) iterations per lane {iters}; week 0 {iters[0]} (JAX package on a CPU: "
+        f"~19,400, docs/performance.md); lane-iterations {stats['lane_iterations']} "
+        f"({stats['padded_lane_iterations']} on padding rows), buckets {stats['buckets']}, "
+        f"restarts {sol.restarts.tolist()}")
+    log(f"[pdhg] (b) |obj - obj_ipm| / (1 + |obj_ipm|) max over converged lanes "
+        f"{float(np.max((diff / (1 + np.abs(obj_ipm)))[conv], initial=0.0)):.3e}; "
+        f"certificates worst {stats['conformance']['worst']}; solver residuals vs "
+        f"certificates rel {cert_rel:.2e}")
+    highs = {}
+    for w in sorted({0, slow}):
+        res = solve_lp_scipy_sparse(prog, {"lmp": lmp[w], "wind_cf": cf[w]})
+        highs[w] = res.obj_with_offset
+        log(f"[pdhg] (b) week {w}: PDHG obj {obj[w]:.10e} ({iters[w]} iterations, "
+            f"converged {bool(conv[w])}), IPM {obj_ipm[w]:.10e}, HiGHS {res.obj_with_offset:.10e}")
+    for w in np.nonzero(conv)[0]:
+        if not lanes[w]["ok"]:
+            log(f"[pdhg] (b)   week {w} ({iters[w]} iterations) fails the default policy: "
+                + ", ".join(f"{f} {lanes[w][f]:.2e}" for f in ("res_primal", "res_dual",
+                                                               "comp", "gap")))
+    if not conv[0]:
+        _fail("weekly PDHG: week 0 did not converge")
+    bad = [w for w in range(52) if conv[w] and not diff[w] <= band[w]]
+    if bad:
+        _fail(f"weekly PDHG lanes {bad} outside the obj_agree band of the IPM")
+    # PDHG stops on its scaled-frame KKT residuals alone, so the
+    # complementarity and gap certificates of a converged lane can exceed
+    # the policy (the JAX package's own weeks 0 and 5 do on a CPU): the
+    # residual certificates are gated, comp and gap counted and printed
+    pol = ConformancePolicy()
+    fails = [w for w in range(52) if conv[w] and not all(
+        lanes[w][f] <= pol.bound(f) for f in ("res_primal", "res_dual"))]
+    if fails:
+        _fail(f"weekly PDHG lanes {fails}: residual certificates outside the default policy")
+    full = sum(bool(lanes[w]["ok"]) for w in range(52) if conv[w])
+    log(f"[pdhg] (b) converged lanes within the whole default policy: {full} of "
+        f"{int(conv.sum())}; residual certificates within it: {int(conv.sum()) - len(fails)}")
+    if not cert_rel <= CERT_RTOL:
+        _fail(f"solver residuals vs certificates rel {cert_rel:.3e}")
+    _pdhg_card_vs_cpu(slp)
+
+    # chunked resume against the one-shot solve, first 8 weeks
+    sub = slp._replace(b=slp.b[:8], c=slp.c[:8], c0=slp.c0[:8])
+    kw = dict(tol=PDHG_TOL, max_iter=PDHG_RESUME_ITERS, **PDLP_KW)
+    t0 = time.perf_counter()
+    one, st_one = solve_lp_pdhg(sub, return_state=True, **kw)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    st = None
+    for stop in range(PDHG_CHUNK, PDHG_RESUME_ITERS + 1, PDHG_CHUNK):
+        seg, st = solve_lp_pdhg(sub, state=st, it_stop=stop, return_state=True, **kw)
+    same = _all_same(one, seg) and _all_same(st_one, st)
+    log(f"[pdhg] (b) 8 weeks, {PDHG_RESUME_ITERS} iterations one-shot ({one_s:.2f} s) and in "
+        f"chunks of {PDHG_CHUNK}: {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        _fail("chunked PDHG resume differs from the one-shot solve on the card")
+    st = solve_lp_pdhg(slp, tol=0.0, max_iter=400, return_state=True, **PDLP_KW)[1]
+    prof = _pdhg_profile("weekly, 52 lanes", slp, st, 200)
+    return dict(converged=int(conv.sum()), iterations=iters, wall_s=pdhg_s, ipm_wall_s=ipm_s,
+                lane_iterations=stats["lane_iterations"], buckets=stats["buckets"],
+                restarts=sol.restarts.tolist(), cert_rel=cert_rel, highs=highs,
+                instantiate=inst, profile=prof,
+                obj_rel_max=float(np.max((diff / (1 + np.abs(obj_ipm)))[conv], initial=0.0)))
+
+
+def _pdhg_year(year_records, hours=8760):
+    """(c): the year LPs through solve_lp_pdhg at a fixed budget."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.obs.conformance import kkt_certificates
+    from dispatches_tpu_torch.solvers.pdhg import solve_lp_pdhg
+
+    prog, _ = build_pricetaker(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    data = P.load_rts303()
+    if year_records is not None:
+        scales = np.array([r["lmp_scale"] for r in year_records])
+    else:
+        scales = np.random.default_rng(0).uniform(0.5, 2.0, 8)
+    base_lmp = np.resize(data["da_lmp"], hours)
+    params = {"lmp": torch.as_tensor(scales[:, None] * base_lmp[None], device="cuda"),
+              "wind_cf": torch.as_tensor(np.resize(data["da_wind_cf"], hours), device="cuda")}
+    slp = prog.instantiate_coo(params, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol, tr = solve_lp_pdhg(slp, tol=PDHG_TOL, max_iter=PDHG_YEAR_ITERS, trace=True, **PDLP_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    its = sol.iterations.tolist()
+    ms_it = wall / max(its) * 1e3
+    cert = kkt_certificates(slp, sol, axes=(None, None, None, 0, 0, None, None, 0))
+    own = np.stack([sol.res_primal.cpu().numpy(), sol.res_dual.cpu().numpy()], 1)
+    cert_rel = float(np.max(np.abs(own - cert[:, :2]) / np.maximum(np.abs(cert[:, :2]), 1e-300)))
+    finite = all(bool(torch.isfinite(a).all()) for a in (sol.x, sol.y, sol.obj))
+    npv = prog.eval_expr("NPV", sol.x, params).cpu().numpy()
+    log(f"[pdhg] (c) year LPs, {len(scales)} lanes x {hours} h ({slp.rows.shape[0]} entries, "
+        f"M {slp.b.shape[-1]}, N {slp.c.shape[-1]}): {PDHG_YEAR_ITERS} iterations budget, "
+        f"iterations {its}, converged {sol.converged.tolist()}, wall {wall:.2f} s "
+        f"({ms_it:.3f} ms per iteration of the batch), peak memory {peak / 2**30:.2f} GiB, "
+        f"restarts {sol.restarts.tolist()}; residuals vs certificates rel {cert_rel:.2e}")
+    rp, rd = tr.res_primal.cpu().numpy(), tr.res_dual.cpu().numpy()
+    step = max(1, rp.shape[1] // 10)
+    for k in range(0, rp.shape[1], step):
+        log(f"[pdhg] (c)   check {k:3d} (iteration {(k + 1) * 200:6d}): res_primal "
+            + " ".join(f"{v:.2e}" for v in rp[:, k]) + " | res_dual "
+            + " ".join(f"{v:.2e}" for v in rd[:, k]))
+    rel = None
+    if year_records is not None:
+        ref = np.array([r["NPV"] for r in year_records])
+        rel = np.abs(npv - ref) / np.abs(ref)
+        log(f"[pdhg] (c) NPV after the budget vs the banded IPM's (year phase): rel "
+            + " ".join(f"{v:.2e}" for v in rel))
+    else:
+        log("[pdhg] (c) the year phase did not run: no banded IPM NPVs to compare with")
+    if not finite:
+        _fail("year PDHG: non-finite results")
+    if not cert_rel <= CERT_RTOL:
+        _fail(f"year PDHG residuals vs certificates rel {cert_rel:.3e}")
+    a = solve_lp_pdhg(slp, tol=PDHG_TOL, max_iter=PDHG_REPEAT_ITERS, **PDLP_KW)
+    b = solve_lp_pdhg(slp, tol=PDHG_TOL, max_iter=PDHG_REPEAT_ITERS, **PDLP_KW)
+    same = _all_same(a, b)
+    log(f"[pdhg] (c) two {PDHG_REPEAT_ITERS}-iteration runs: {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        _fail("two year PDHG runs differ on the card")
+    st = solve_lp_pdhg(slp, tol=0.0, max_iter=400, return_state=True, **PDLP_KW)[1]
+    prof = _pdhg_profile("year, 8 lanes", slp, st, 200)
+    return dict(iterations=its, wall_s=wall, ms_per_iteration=ms_it, peak_bytes=peak,
+                cert_rel=cert_rel, npv_rel=None if rel is None else rel.tolist(),
+                res_primal_last=rp[:, -1].tolist(), res_dual_last=rd[:, -1].tolist(),
+                restarts=sol.restarts.tolist(), profile=prof)
+
+
+# (d): random 12 x 24 LPs (dense, 35% nonzero, a feasible x0 inside the
+# box [0, 4]); the ladder caps the IPM at the second-slowest lane's count
+REMEDY_SEEDS = (12, 19, 15)
+
+
+def _random_lp(seed, m=12, n=24, density=0.35):
+    r = np.random.default_rng(seed)
+    A = r.normal(size=(m, n)) * (r.random((m, n)) < density)
+    A[np.arange(m), r.integers(0, n, m)] += 1.0  # no empty rows
+    x0 = r.uniform(0.5, 2.5, n)
+    return (A, A @ x0, r.normal(size=n), np.zeros(n), np.full(n, 4.0), 0.0)
+
+
+def _pdhg_remedy(device="cuda"):
+    """(d): the lane switch both ways on the card."""
+    from dispatches_tpu_torch.core.program import LPData
+    from dispatches_tpu_torch.obs import health
+    from dispatches_tpu_torch.runtime.adaptive import solve_lp_adaptive
+    from dispatches_tpu_torch.runtime.remedy import RemedyEngine, dense_to_sparse
+    from dispatches_tpu_torch.solvers.ipm import solve_lp_batch
+
+    lp = _dense_lp([_random_lp(seed) for seed in REMEDY_SEEDS], device)
+    its = solve_lp_batch(lp, tol=1e-8, max_iter=60).iterations.tolist()
+    sick = int(np.argmax(its))
+    cap = sorted(its)[-2]
+    if its[sick] <= cap:
+        raise AssertionError(f"remedy batch: no lane needs more IPM iterations {its}")
+    kw = dict(tol=1e-8, max_iter=cap)
+    stats = {}
+    sol = solve_lp_adaptive(lp, stats=stats, remedy=True, **kw)
+    off = solve_lp_adaptive(lp, **kw)
+    rem = stats.get("remediated", {})
+    verdicts = [v.verdict for v in health.classify_solution(sol, budget=cap)]
+    log(f"[pdhg] (d) dense batch, IPM iterations {its}, max_iter {cap}: remedy "
+        f"{rem}, verdicts {verdicts}")
+    if (list(rem) != [sick] or rem[sick]["rung"] != "lane_switch"
+            or not bool(sol.converged.all()) or set(verdicts) - {"healthy", "slow"}):
+        raise AssertionError(f"the dense ladder did not recover lane {sick} at lane_switch: {rem}")
+    if not all(_same(a[i], b[i]) for a, b in zip(off, sol) for i in range(3) if i != sick):
+        raise AssertionError("the remedy ladder changed a healthy lane")
+    row = LPData(*(a[sick] for a in lp))
+    slp = dense_to_sparse(row)
+    eng = RemedyEngine(solver_kw=dict(tol=1e-6, max_iter=200), entry="solve_lp_pdhg")
+    from dispatches_tpu_torch.solvers.pdhg import solve_lp_pdhg
+
+    stuck = solve_lp_pdhg(slp, tol=1e-6, max_iter=200)
+    v = health.classify_solution(stuck, budget=200)[0]
+    out = eng.remediate(slp, v)
+    log(f"[pdhg] (d) SparseLP engine: verdict {v.verdict} -> {out.verdict.verdict} at "
+        f"{out.rung}, history {out.history}")
+    if out.rung != "lane_switch" or not bool(out.solution.converged):
+        raise AssertionError(f"the PDHG ladder did not switch to the IPM: {out.history}")
+    return dict(its=its, max_iter=cap, remediated=rem, sparse_history=out.history)
+
+
+def phase_pdhg(year_records=None):
+    """The `pdhg` phase (see the module docstring), on the card."""
+    t0 = time.perf_counter()
+    weekly = _pdhg_weekly()
+    year = _pdhg_year(year_records)
+    rem = _pdhg_remedy()
+    log(f"[pdhg] phase {time.perf_counter() - t0:.1f} s")
+    if _FAILS:
+        raise AssertionError(f"pdhg phase: {len(_FAILS)} gates failed: {_FAILS}")
+    return dict(weekly=weekly, year=year, remedy=rem)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,weekly,year,grad,adaptive",
-                    help="comma list of kernel, weekly, year, grad, adaptive (device and "
-                    "build always run)")
+    ap.add_argument("--phases", default="kernel,weekly,year,grad,adaptive,pdhg",
+                    help="comma list of kernel, weekly, year, grad, adaptive, pdhg (device "
+                    "and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -849,6 +1304,8 @@ def main(argv=None):
     grad = phase_grad(year.get("records"), year.get("highs_x")) if "grad" in phases else {}
     adaptive = (phase_adaptive(year.get("records"), year.get("highs_npv"))
                 if "adaptive" in phases else {})
+    if "pdhg" in phases:
+        phase_pdhg(year.get("records"))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",

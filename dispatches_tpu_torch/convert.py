@@ -2,7 +2,7 @@
 
 The system has no weights: what a model's weights are to a network, the
 instantiated LP is to a solve. These helpers turn the fields of the JAX
-package's `LPData` / `BandedLP` (given as numpy arrays, e.g.
+package's `LPData` / `SparseLP` / `BandedLP` (given as numpy arrays, e.g.
 ``[np.asarray(a) for a in lp]``) into the port's tensors, so one problem can
 be fed to both solvers bit for bit.
 """
@@ -13,7 +13,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .core.program import LPData
+from .core.program import LPData, SparseLP
 from .solvers.structured import BandedLP
 
 
@@ -36,3 +36,16 @@ def banded_lp_from_numpy(fields: Sequence, device="cuda", dtype=torch.float64) -
     """`BandedLP` from (Ad, As, Bb, b, c, cb, l, u, lb, ub, c0) numpy arrays
     (or a dict by name)."""
     return _fields(BandedLP, fields, dtype, device)
+
+
+def sparse_lp_from_numpy(fields: Sequence, device="cuda", dtype=torch.float64) -> SparseLP:
+    """`SparseLP` from (rows, cols, vals, b, c, l, u, c0) numpy arrays (or a
+    dict by name); the pattern keeps its int32 indices."""
+    if isinstance(fields, dict):
+        fields = [fields[name] for name in SparseLP._fields]
+    if len(fields) != len(SparseLP._fields):
+        raise ValueError(f"SparseLP takes {len(SparseLP._fields)} fields, got {len(fields)}")
+    return SparseLP(
+        *(torch.tensor(np.asarray(a, np.int32), device=device) for a in fields[:2]),
+        *(torch.tensor(np.asarray(a), dtype=dtype, device=device) for a in fields[2:]),
+    )

@@ -9,6 +9,8 @@ device. The scatter-adds of the JAX version (``.at[].add``) are
 Parameters may carry leading batch axes (for example ``lmp`` of shape
 ``(B, T)``): every parametric field then gains the same leading axes, the
 batched counterpart of ``jax.vmap(prog.instantiate)``.
+``instantiate_coo`` gives the same LP with A as COO triplets (`SparseLP`)
+for the matrix-free PDHG solver.
 """
 from __future__ import annotations
 
@@ -25,6 +27,24 @@ class LPData(NamedTuple):
     """Standard-form LP on device: min c.x + c0  s.t.  A x = b, l <= x <= u."""
 
     A: torch.Tensor  # (M, N)
+    b: torch.Tensor  # (M,)
+    c: torch.Tensor  # (N,)
+    l: torch.Tensor  # (N,)
+    u: torch.Tensor  # (N,)
+    c0: torch.Tensor  # ()
+
+
+class SparseLP(NamedTuple):
+    """The same LP with A in COO form for matrix-free first-order solvers.
+
+    `rows`/`cols` are the static int32 sparsity pattern (it never changes
+    across scenarios); only `vals` may be parametric. With leading batch
+    axes on b/c/l/u/c0 (and on `vals` when a parameter enters A) the
+    pattern stays unbatched. M and N are the lengths of b and c."""
+
+    rows: torch.Tensor  # (nnz,) int32
+    cols: torch.Tensor  # (nnz,) int32
+    vals: torch.Tensor  # (nnz,)
     b: torch.Tensor  # (M,)
     c: torch.Tensor  # (N,)
     l: torch.Tensor  # (N,)
@@ -59,9 +79,10 @@ def _hash_options(h, options: Optional[Dict]) -> None:
 
 def lp_fingerprint(lp, options: Optional[Dict] = None) -> str:
     """Stable content fingerprint of a problem NamedTuple (``LPData``,
-    ``BandedLP``) plus the solver options that shape the answer. Equal to
-    the JAX package's fingerprint of the same values: the hash sees the
-    type name, field names, dtypes, shapes and bytes, never the framework."""
+    ``SparseLP``, ``BandedLP``) plus the solver options that shape the
+    answer. Equal to the JAX package's fingerprint of the same values: the
+    hash sees the type name, field names, dtypes, shapes and bytes, never
+    the framework."""
     h = hashlib.sha256()
     h.update(type(lp).__name__.encode())
     for name, arr in zip(lp._fields, lp):
@@ -123,6 +144,19 @@ def _scatter_add(a: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
     flat = (torch.arange(nb, device=a.device)[:, None] * n + idx[None, :]).reshape(-1)
     a.reshape(-1).index_put_((flat,), vals, accumulate=True)
     return a
+
+
+def _presum(idx, vals, n: int, dtype, device):
+    """Static scatter-add triplets summed on the host in entry order, the
+    order of a sequential scatter: (unique indices, their sums). On a CUDA
+    device the accumulation order of repeated indices is not the CPU's (the
+    design LP's cost has two columns of 169 terms each), so repeats are
+    summed here once and reach the device one per index."""
+    npd = torch.empty(0, dtype=dtype).numpy().dtype
+    acc = np.zeros(n, npd)
+    np.add.at(acc, idx, np.asarray(vals).astype(npd))
+    uniq = np.unique(idx)
+    return uniq, torch.as_tensor(acc[uniq], device=device)
 
 
 class _ParamSource:
@@ -347,18 +381,59 @@ class CompiledLP:
         for k, (rows, cols, scale, pidx) in self.A_pgroups.items():
             _scatter_add(A, rows * N + cols, t(scale) * src.take(k, pidx))
         A = A.reshape(*lead, M, N)
-        b = torch.zeros(*lead, M, dtype=dtype, device=device)
-        _scatter_add(b, self.b_rows, t(self.b_vals))
+        b, c, c0 = self._rhs_cost(src, dtype, device)
+        return LPData(A=A, b=b, c=c, l=t(self.lb), u=t(self.ub), c0=c0)
+
+    def _rhs_cost(self, src, dtype, device):
+        """The b, c and c0 of `instantiate`, shared with `instantiate_coo`."""
+        lead = src.lead
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        b = torch.zeros(*lead, self.M, dtype=dtype, device=device)
+        _scatter_add(b, *_presum(self.b_rows, self.b_vals, self.M, dtype, device))
         for k, (rows, scale, pidx) in self.b_pgroups.items():
             _scatter_add(b, rows, t(scale) * src.take(k, pidx))
-        c = torch.zeros(*lead, N, dtype=dtype, device=device)
-        _scatter_add(c, self.c_cols, t(self.c_vals))
+        c = torch.zeros(*lead, self.N, dtype=dtype, device=device)
+        _scatter_add(c, *_presum(self.c_cols, self.c_vals, self.N, dtype, device))
         for k, (cols, scale, pidx) in self.c_pgroups.items():
             _scatter_add(c, cols, t(scale) * src.take(k, pidx))
         c0 = torch.full(lead, self.c0_val, dtype=dtype, device=device)
         for k, (scale, pidx) in self.c0_pgroups.items():
             c0 = c0 + torch.sum(t(scale) * src.take(k, pidx), dim=-1)
-        return LPData(A=A, b=b, c=c, l=t(self.lb), u=t(self.ub), c0=c0)
+        return b, c, c0
+
+    # ------------------------------------------------------------------
+    def instantiate_coo(
+        self, params: Dict, dtype=torch.float64, device="cuda"
+    ) -> SparseLP:
+        """COO variant of `instantiate` for matrix-free solvers (PDHG): the
+        static pattern first (``A_rows``), then each ``A_pgroups`` entry in
+        dict order; duplicate (row, col) entries are kept (the products
+        sum them). `rows`/`cols` are int32 and unbatched; `vals` gains the
+        parameters' batch axes only when some ``A_pgroups`` parameter
+        carries them."""
+        src = _ParamSource(params, self.param_shapes, dtype, device)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        rows = [self.A_rows]
+        cols = [self.A_cols]
+        vals = [t(self.A_vals)]
+        for k, (r, cc, scale, pidx) in self.A_pgroups.items():
+            rows.append(r)
+            cols.append(cc)
+            vals.append(t(scale) * src.take(k, pidx))
+        lead = torch.broadcast_shapes(*(v.shape[:-1] for v in vals))
+        vals = torch.cat([v.expand(*lead, v.shape[-1]) for v in vals], dim=-1)
+        b, c, c0 = self._rhs_cost(src, dtype, device)
+        return SparseLP(
+            rows=torch.as_tensor(np.concatenate(rows).astype(np.int32), device=device),
+            cols=torch.as_tensor(np.concatenate(cols).astype(np.int32), device=device),
+            vals=vals, b=b, c=c, l=t(self.lb), u=t(self.ub), c0=c0,
+        )
 
     # ------------------------------------------------------------------
     def expand(self, x: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,8 @@ rest and discards their updates. This module recovers that waste on the
 host without touching any lane's iterate sequence:
 
 - **Lane retirement.** The segmented entry points (`ipm.solve_lp_partial`,
-  `structured.solve_lp_banded_batch(..., return_state=True)`) run the
-  solve in chunks of `chunk_iters` iterations and return each lane's
+  `structured.solve_lp_banded_batch(..., return_state=True)`,
+  `pdhg.solve_lp_pdhg(..., return_state=True)`) run the solve in chunks of `chunk_iters` iterations and return each lane's
   resumable `IPMState`. Between chunks the loop reads every lane's
   `done` and `it` to the host (one transfer a chunk) and harvests the
   finished lanes' rows.
@@ -18,7 +18,8 @@ host without touching any lane's iterate sequence:
   harvested while its bucket is unchanged is bitwise the one-shot solve.
   After the bucket shrinks, a lane runs the same iteration sequence, but
   batched linear algebra whose rounding depends on the batch count may
-  move its last bits.
+  move its last bits (the IPMs). PDHG's products and reductions are
+  fixed-order, so its lanes stay bitwise through compaction too.
 - **Buckets.** Active-lane counts are padded up to a geometric ladder
   (`bucket_ladder`) with duplicates of the first survivor, exactly as in
   the JAX package, where each rung is one compiled executable. Eager
@@ -35,9 +36,15 @@ iterations, summed over chunks), and ``padded_lane_iterations``, the
 share of them spent on padding rows. ``adaptive_lanes_retired_total``
 counts the lanes retired while their batch ran on.
 
-The JAX package's `perf`, `conformance`, `lanes`, `lane_policy`,
-`lane_model` and `warm_predictor` options, its serving-tier `SlotEngine`
-and PDHG entry point are not ported yet and raise NotImplementedError.
+``conformance=`` (True, a `ConformancePolicy`, a mapping or a
+`ConformanceChecker`) certifies every returned lane against its KKT
+conditions (`obs.conformance`) into ``stats["conformance"]`` and the
+``solve_residual_*`` histograms; it only reads the results, which stay
+bitwise those of the same call without it.
+
+The JAX package's `perf`, `lanes`, `lane_policy`, `lane_model` and
+`warm_predictor` options and its serving-tier `SlotEngine` are not
+ported yet; the options raise NotImplementedError.
 Its persistent compile cache and compile-hit accounting manage XLA's
 executables and have no counterpart in eager PyTorch.
 """
@@ -104,8 +111,8 @@ def _stack_rows(cls, rows):
 def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
                     sol_cls, max_iter, chunk_iters, ladder, warm_start, trace,
                     stats):
-    """Host-side retirement / compaction loop shared by the dense and the
-    banded entry points.
+    """Host-side retirement / compaction loop shared by the dense, banded
+    and PDHG entry points.
 
     ``seg_cold(d, w, stop)`` starts a bucketed sub-batch (optionally from
     per-lane warm seeds) and ``seg_resume(d, s, stop)`` resumes one from
@@ -114,6 +121,7 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
     out of iterations. Returns the solution rows stacked in the original
     lane order, and the stitched traces (or None)."""
     device = data[0].device
+    dtype = next(a.dtype for a in data if torch.is_floating_point(a))
 
     def take(lane_rows):
         idx = torch.as_tensor(lane_rows, device=device)
@@ -136,7 +144,7 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
     if warm_start is not None:
         idx0 = torch.as_tensor(cur_map, device=device)
         w_cur = tuple(
-            torch.as_tensor(w, dtype=data[0].dtype, device=device).index_select(0, idx0)
+            torch.as_tensor(w, dtype=dtype, device=device).index_select(0, idx0)
             for w in warm_start
         )
     st_cur = None
@@ -265,6 +273,31 @@ def _apply_remedy(remedy, fields_cls, data, axes, batch, out, tr, budget,
     return out, tr
 
 
+def _check_conformance(conformance, fields_cls, data, axes, batch, out, entry,
+                       *, meta=None, stats=None):
+    """Certify every lane of the (possibly remediated) result; the summary
+    goes into ``stats["conformance"]``. Only reads `out`."""
+    from ..obs.conformance import FIELDS, as_conformance
+
+    checker = as_conformance(conformance, meta=meta)
+    if checker is None:
+        return None
+    problem = fields_cls(*data)
+    if batch is None:
+        fields = checker.check_row(problem, out, entry=entry, meta=meta)
+        summary = {
+            "entry": entry,
+            "lanes": [fields],
+            "ok": fields["ok"],
+            "worst": {name: fields[name] for name in FIELDS},
+        }
+    else:
+        summary = checker.check_batch(problem, axes, out, entry=entry, meta=meta)
+    if stats is not None:
+        stats["conformance"] = summary
+    return summary
+
+
 def solve_lp_adaptive(
     lp,
     *,
@@ -293,16 +326,15 @@ def solve_lp_adaptive(
     Unbatched input takes the plain solve. `remedy` (a
     `runtime.remedy.RemedyEngine`, `RemedyPolicy`, dict or True) runs the
     escalation ladder on lanes that retire unhealthy, and records each in
-    ``stats["remediated"]``; the dense ladder needs
-    ``RemedyPolicy(allow_lane_switch=False)`` until PDHG is ported.
+    ``stats["remediated"]``; its last rung re-solves a stuck lane through
+    PDHG. `conformance` certifies the returned lanes (module docstring).
 
-    `warm_predictor`, `perf`, `conformance`, `lanes`, `lane_policy` and
-    `lane_model` are not ported yet and raise NotImplementedError."""
+    `warm_predictor`, `perf`, `lanes`, `lane_policy` and `lane_model` are
+    not ported yet and raise NotImplementedError."""
     from ..core.program import LPData
     from ..solvers.ipm import _LP_NDIM, IPMSolution, solve_lp, solve_lp_partial
 
-    _reject_deferred(warm_predictor=warm_predictor, perf=perf,
-                     conformance=conformance, lanes=lanes,
+    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
                      lane_policy=lane_policy, lane_model=lane_model)
     axes, batch = _batch_axes(LPData, _LP_NDIM, lp)
     if remedy is not None:
@@ -312,11 +344,14 @@ def solve_lp_adaptive(
     max_iter = solver_kw.get("max_iter", 60)
     if batch is None:
         out0 = solve_lp(lp, warm_start=warm_start, trace=trace, **solver_kw)
-        if remedy is None:
+        if remedy is None and conformance is None:
             return out0
         sol0, tr0 = out0 if trace else (out0, None)
-        sol0, tr0 = _apply_remedy(remedy, LPData, lp, axes, None, sol0, tr0,
-                                  max_iter, stats=stats)
+        if remedy is not None:
+            sol0, tr0 = _apply_remedy(remedy, LPData, lp, axes, None, sol0, tr0,
+                                      max_iter, stats=stats)
+        _check_conformance(conformance, LPData, lp, axes, None, sol0, "solve_lp",
+                           stats=stats)
         return (sol0, tr0) if trace else sol0
 
     def seg_cold(d, w, stop):
@@ -333,6 +368,8 @@ def solve_lp_adaptive(
     if remedy is not None:
         out, tr = _apply_remedy(remedy, LPData, lp, axes, batch, out, tr,
                                 max_iter, stats=stats)
+    _check_conformance(conformance, LPData, lp, axes, batch, out, "solve_lp",
+                       stats=stats)
     return (out, tr) if trace else out
 
 
@@ -358,14 +395,16 @@ def solve_lp_banded_adaptive(
     segment is one batched banded solve, so on CUDA tensors every chunk
     runs its sweeps through the chain-sweep kernel at the bucket's batch
     size. The remedy ladder has no lane switch here (no paired lane), so
-    ``remedy=True`` works as it stands. `warm_predictor`, `perf`,
-    `conformance`, `lanes` and `lane_policy` are not ported yet and raise
-    NotImplementedError."""
+    ``remedy=True`` works as it stands. `conformance` certifies the
+    returned lanes through the banded certificate, the reduced solution
+    scattered back to the flat frame through ``meta.col_pos``.
+    `warm_predictor`, `perf`, `lanes` and `lane_policy` are not ported yet
+    and raise NotImplementedError."""
     from ..solvers.ipm import IPMSolution
     from ..solvers.structured import _BASE_NDIM, BandedLP, solve_lp_banded, solve_lp_banded_batch
 
-    _reject_deferred(warm_predictor=warm_predictor, perf=perf,
-                     conformance=conformance, lanes=lanes, lane_policy=lane_policy)
+    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
+                     lane_policy=lane_policy)
     axes, batch = _batch_axes(BandedLP, _BASE_NDIM, blp)
     if remedy is not None:
         from .remedy import as_remedy
@@ -374,11 +413,14 @@ def solve_lp_banded_adaptive(
     max_iter = solver_kw.get("max_iter", 60)
     if batch is None:
         out0 = solve_lp_banded(meta, blp, warm_start=warm_start, trace=trace, **solver_kw)
-        if remedy is None:
+        if remedy is None and conformance is None:
             return out0
         sol0, tr0 = out0 if trace else (out0, None)
-        sol0, tr0 = _apply_remedy(remedy, BandedLP, blp, axes, None, sol0, tr0,
-                                  max_iter, meta=meta, stats=stats)
+        if remedy is not None:
+            sol0, tr0 = _apply_remedy(remedy, BandedLP, blp, axes, None, sol0, tr0,
+                                      max_iter, meta=meta, stats=stats)
+        _check_conformance(conformance, BandedLP, blp, axes, None, sol0,
+                           "solve_lp_banded", meta=meta, stats=stats)
         return (sol0, tr0) if trace else sol0
 
     def segment(d, w, s, stop):
@@ -398,4 +440,90 @@ def solve_lp_banded_adaptive(
     if remedy is not None:
         out, tr = _apply_remedy(remedy, BandedLP, blp, axes, batch, out, tr,
                                 max_iter, meta=meta, stats=stats)
+    _check_conformance(conformance, BandedLP, blp, axes, batch, out,
+                       "solve_lp_banded", meta=meta, stats=stats)
+    return (out, tr) if trace else out
+
+
+def solve_lp_pdhg_adaptive(
+    lps,
+    *,
+    chunk_iters: int = 2000,
+    ladder_base: int = 8,
+    warm_start=None,
+    warm_predictor=None,
+    trace: bool = False,
+    stats: Optional[dict] = None,
+    remedy=None,
+    perf=None,
+    conformance=None,
+    lanes=None,
+    lane_policy=None,
+    lane_model=None,
+    **solver_kw,
+):
+    """Adaptive-batch PDHG over a batch of `SparseLP`s sharing one sparsity
+    pattern (batched b/c/l/u/c0, and `vals` when A is parametric; `rows`
+    and `cols` unbatched), with the contract of `solve_lp_adaptive`.
+    `chunk_iters` is rounded up to a whole number of check periods
+    (`check_every`), as the PDHG loop only stops between checks. Lanes
+    stay bitwise the one-shot `solve_lp_pdhg` batch's through compaction
+    (fixed-order products). `warm_start` is a per-lane ``(x, y)``. The
+    `remedy` ladder's last rung re-solves a stuck lane through the dense
+    IPM; `conformance` certifies the returned lanes. The PDLP controls
+    (``adaptive_restarts``, ``primal_weight``, ``linesearch``, ``polish``)
+    ride through ``solver_kw`` into `solve_lp_pdhg`. `warm_predictor`,
+    `perf`, `lanes`, `lane_policy` and `lane_model` are not ported yet and
+    raise NotImplementedError."""
+    from ..core.program import SparseLP
+    from ..solvers.pdhg import _SPARSE_NDIM, PDHGSolution, solve_lp_pdhg
+
+    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
+                     lane_policy=lane_policy, lane_model=lane_model)
+    axes, batch = _batch_axes(SparseLP, _SPARSE_NDIM, lps)
+    if remedy is not None:
+        from .remedy import as_remedy
+
+        remedy = as_remedy(remedy, solver_kw=solver_kw, entry="solve_lp_pdhg")
+    max_iter = solver_kw.get("max_iter", 100_000)
+    if batch is None:
+        out0 = solve_lp_pdhg(lps, warm_start=warm_start, trace=trace, **solver_kw)
+        if remedy is None and conformance is None:
+            return out0
+        sol0, tr0 = out0 if trace else (out0, None)
+        if remedy is not None:
+            sol0, tr0 = _apply_remedy(remedy, SparseLP, lps, axes, None, sol0, tr0,
+                                      max_iter, stats=stats)
+        _check_conformance(conformance, SparseLP, lps, axes, None, sol0,
+                           "solve_lp_pdhg", stats=stats)
+        return (sol0, tr0) if trace else sol0
+    if axes[0] == 0 or axes[1] == 0:
+        raise ValueError(
+            "solve_lp_pdhg_adaptive needs one shared sparsity pattern "
+            "(unbatched rows/cols); batch vals/b/c/l/u instead"
+        )
+    check_every = solver_kw.get("check_every", 200)
+    chunk_iters = -(-chunk_iters // check_every) * check_every
+
+    def segment(d, w, s, stop):
+        out = solve_lp_pdhg(d, warm_start=w, state=s, it_stop=stop, trace=trace,
+                            return_state=True, **solver_kw)
+        return (out[0], out[2]) if trace else out
+
+    def seg_cold(d, w, stop):
+        return segment(d, w, None, stop)
+
+    def seg_resume(d, s, stop):
+        return segment(d, None, s, stop)
+
+    out, tr = _adaptive_drive(
+        "solve_lp_pdhg", SparseLP, lps, axes, batch, seg_cold, seg_resume,
+        PDHGSolution, max_iter, chunk_iters, bucket_ladder(batch, ladder_base),
+        warm_start, trace, stats,
+    )
+    if remedy is not None:
+        out, tr = _apply_remedy(remedy, SparseLP, lps, axes, batch, out, tr,
+                                max_iter, stats=stats)
+    _check_conformance(conformance, SparseLP, lps, axes, batch, out,
+                       "solve_lp_pdhg", stats=stats)
     return (out, tr) if trace else out

@@ -10,15 +10,19 @@ lane that retired unhealthy, while the rest of the batch's results stand:
 2. ``regularize`` — raise the IPM's `reg_p` / `reg_d` by
    `RemedyPolicy.reg_scale` over the dtype defaults;
 3. ``float64`` — re-solve an f32 problem in f64 (skipped for f64 data);
-4. ``lane_switch`` — change solver family. Banded problems have no paired
-   lane (``"no_paired_lane"``). The dense IPM's pair is the first-order
-   PDHG lane, which the port does not have yet: a dense engine whose
-   policy allows the switch is refused when it is built;
+4. ``lane_switch`` — change solver family: a dense LP re-solves through
+   the first-order PDHG lane (`solvers/pdhg.py`) and its solution is
+   mapped back into the IPM's row shape; a `SparseLP` re-solves through
+   the dense IPM. Banded problems have no paired lane
+   (``"no_paired_lane"``);
 5. give up — an ``unrecoverable`` verdict, and the original (unhealthy)
    row passes through.
 
-Every rung tried counts in ``remediation_attempts_total{rung,entry}``; a
-rung that cures the lane counts in
+The engine dispatches on the problem's type (`LPData`, `SparseLP`,
+`BandedLP`), as in the JAX package; PDHG lanes skip ``regularize``
+(``"no_reg_knob"``). Every rung tried counts in
+``remediation_attempts_total{rung,entry}``; a rung that cures the lane
+counts in
 ``remediation_recovered_total{verdict,rung}`` and ends the ladder. The
 JAX package's journal event and flight-recorder capture have no
 counterpart in the port yet; the outcome and its history go into the
@@ -30,6 +34,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..core.program import LPData, SparseLP
 from ..obs import health as obs_health
 from ..obs import metrics as obs_metrics
 
@@ -92,12 +97,9 @@ def as_remedy(spec, *, solver_kw=None, entry="solve_lp"):
 
 class RemedyEngine:
     """One remediation policy bound to the solver options of the path it
-    heals: the dense IPM (`ipm.solve_lp`), or the banded one when `entry`
-    is ``"solve_lp_banded"``. Host-side and stateless between calls.
-
-    Raises NotImplementedError for a dense engine whose policy allows the
-    lane switch: its rung re-solves through PDHG, which is not ported yet
-    (pass ``RemedyPolicy(allow_lane_switch=False)``)."""
+    heals (`entry` labels its metrics). Host-side and stateless between
+    calls; each `remediate` re-solves on the device of the problem's
+    tensors."""
 
     def __init__(
         self,
@@ -107,25 +109,21 @@ class RemedyEngine:
         entry: str = "solve_lp",
     ):
         self.policy = policy or RemedyPolicy()
-        self.banded = entry == "solve_lp_banded"
-        if self.policy.allow_lane_switch and not self.banded:
-            raise NotImplementedError(
-                "the dense lane_switch rung re-solves through PDHG, which is "
-                "not ported yet; use RemedyPolicy(allow_lane_switch=False)"
-            )
         self.solver_kw = dict(solver_kw or {})
         # the ladder re-solves plainly
         self.solver_kw.pop("trace", None)
         self.entry = entry
 
     def remediate(self, problem, verdict, *, meta=None) -> RemedyOutcome:
-        """Run the ladder for ONE unbatched problem (`LPData`, or
-        `BandedLP` with its `meta`) whose solve earned `verdict`.
-        ``outcome.solution`` is a one-lane solution of the original row's
-        dtype, to substitute in place. Never raises: a rung whose re-solve
-        fails is recorded in the history and the ladder climbs on."""
+        """Run the ladder for ONE unbatched problem (`LPData`, `SparseLP`,
+        or `BandedLP` with its `meta`) whose solve earned `verdict`.
+        ``outcome.solution`` is a one-lane solution shaped and typed like
+        the original path's row, to substitute in place. Never raises: a
+        rung whose re-solve fails is recorded in the history and the
+        ladder climbs on."""
         pol = self.policy
         original = getattr(verdict, "verdict", str(verdict))
+        kind = type(problem).__name__
         history = []
         attempts = 0
         won = None
@@ -134,7 +132,7 @@ class RemedyEngine:
             if attempts >= pol.max_attempts:
                 break
             try:
-                result = getattr(self, f"_rung_{rung}")(problem, meta)
+                result = getattr(self, f"_rung_{rung}")(kind, problem, meta)
             except Exception as e:  # a broken rung must not kill the solve
                 result = f"error:{type(e).__name__}"
             if isinstance(result, str):  # rung skipped / inapplicable
@@ -167,10 +165,12 @@ class RemedyEngine:
 
     # -- the rungs: each returns (solution, classify budget), or a short
     # string naming why the rung does not apply
-    def _rung_cold(self, problem, meta):
-        return self._native_solve(problem, meta, self.solver_kw)
+    def _rung_cold(self, kind, problem, meta):
+        return self._native_solve(kind, problem, meta, self.solver_kw)
 
-    def _rung_regularize(self, problem, meta):
+    def _rung_regularize(self, kind, problem, meta):
+        if kind == "SparseLP":
+            return "no_reg_knob"  # PDHG has no KKT regularization
         kw = dict(self.solver_kw)
         f64 = problem.b.dtype == torch.float64
         # a user reg (an explicit 0.0 too) escalates FROM the dtype
@@ -179,33 +179,84 @@ class RemedyEngine:
         rd = kw.get("reg_d") or (1e-12 if f64 else 1e-7)
         kw["reg_p"] = float(rp) * self.policy.reg_scale
         kw["reg_d"] = float(rd) * self.policy.reg_scale
-        return self._native_solve(problem, meta, kw)
+        return self._native_solve(kind, problem, meta, kw)
 
-    def _rung_float64(self, problem, meta):
+    def _rung_float64(self, kind, problem, meta):
         if not self.policy.allow_f64:
             return "disabled"
         dtype = problem.b.dtype
         if dtype == torch.float64:
             return "already_f64"
         sol, budget = self._native_solve(
-            _cast_floats(problem, torch.float64), meta, self.solver_kw
+            kind, _cast_floats(problem, torch.float64), meta, self.solver_kw
         )
         return _cast_floats(sol, dtype), budget
 
-    def _rung_lane_switch(self, problem, meta):
+    def _rung_lane_switch(self, kind, problem, meta):
         if not self.policy.allow_lane_switch:
             return "disabled"
-        return "no_paired_lane"  # a banded engine; dense ones refuse at build
+        if kind == "BandedLP":
+            return "no_paired_lane"
+        if kind == "SparseLP":
+            return self._switch_to_ipm(problem)
+        return self._switch_to_pdhg(problem)
 
-    def _native_solve(self, problem, meta, kw):
-        budget = kw.get("max_iter", 60)
-        if self.banded:
+    def _native_solve(self, kind, problem, meta, kw):
+        if kind == "BandedLP":
             from ..solvers.structured import solve_lp_banded
 
-            return solve_lp_banded(meta, problem, **kw), budget
+            return solve_lp_banded(meta, problem, **kw), kw.get("max_iter", 60)
+        if kind == "SparseLP":
+            from ..solvers.pdhg import solve_lp_pdhg
+
+            return solve_lp_pdhg(problem, **kw), kw.get("max_iter", 100_000)
         from ..solvers.ipm import solve_lp
 
-        return solve_lp(problem, **kw), budget
+        return solve_lp(problem, **kw), kw.get("max_iter", 60)
+
+    def _switch_to_pdhg(self, lp):
+        """Dense IPM lane -> PDHG lane. The PDHG solution is classified
+        as it is, then mapped into the IPM's row shape (bound duals from
+        the reduced costs) so the batch stays homogeneous."""
+        from ..solvers.pdhg import solve_lp_pdhg
+
+        tol = max(float(self.solver_kw.get("tol") or 1e-6), 1e-6)
+        sol = solve_lp_pdhg(dense_to_sparse(lp), tol=tol)
+        v = obs_health.classify_solution(sol, budget=100_000)
+        if v and v[0].verdict in ("healthy", "slow"):
+            return _ipm_row_from_pdhg(sol, lp), None
+        return sol, 100_000  # the ladder's classify rejects it
+
+    def _switch_to_ipm(self, slp):
+        """PDHG lane -> dense IPM lane (the pattern densified)."""
+        from ..solvers.ipm import solve_lp
+
+        lp = sparse_to_dense(slp)
+        sol = solve_lp(lp, tol=float(self.solver_kw.get("tol") or 1e-8))
+        v = obs_health.classify_solution(sol, budget=60)
+        if v and v[0].verdict in ("healthy", "slow"):
+            return _pdhg_row_from_ipm(sol, slp), None
+        return sol, 60
+
+
+def dense_to_sparse(lp: LPData) -> SparseLP:
+    """Dense `LPData` row -> the equivalent `SparseLP` (COO over the
+    nonzeros of A, in row-major order, int32 indices)."""
+    rows, cols = torch.nonzero(lp.A, as_tuple=True)
+    return SparseLP(
+        rows.to(torch.int32), cols.to(torch.int32), lp.A[rows, cols],
+        lp.b, lp.c, lp.l, lp.u, lp.c0,
+    )
+
+
+def sparse_to_dense(slp: SparseLP) -> LPData:
+    """`SparseLP` row -> the equivalent dense `LPData` (the inverse of
+    `dense_to_sparse`; a repeated (row, col) keeps one value, as numpy
+    assignment does)."""
+    A = torch.zeros(slp.b.shape[-1], slp.c.shape[-1], dtype=slp.vals.dtype,
+                    device=slp.vals.device)
+    A[slp.rows.long(), slp.cols.long()] = slp.vals
+    return LPData(A, slp.b, slp.c, slp.l, slp.u, slp.c0)
 
 
 def _cast_floats(tree, dtype):
@@ -214,3 +265,40 @@ def _cast_floats(tree, dtype):
     return type(tree)(*(
         a.to(dtype) if torch.is_floating_point(a) else a for a in tree
     ))
+
+
+def _ipm_row_from_pdhg(psol, lp: LPData):
+    """PDHGSolution -> IPMSolution row for a dense LP: bound duals from
+    the reduced costs ``z = c - Aᵀy`` (zl the positive part on finite
+    lower bounds, zu the negative part on finite upper ones), and the
+    complementarity gap they imply."""
+    from ..solvers.ipm import IPMSolution
+
+    dt = lp.b.dtype
+    x, y = psol.x.to(dt), psol.y.to(dt)
+    fl, fu = torch.isfinite(lp.l), torch.isfinite(lp.u)
+    z = lp.c - lp.A.transpose(-1, -2) @ y
+    zl = torch.where(fl, torch.clamp(z, min=0.0), 0.0)
+    zu = torch.where(fu, torch.clamp(-z, min=0.0), 0.0)
+    comp = (torch.where(fl, (x - lp.l) * zl, 0.0).sum()
+            + torch.where(fu, (lp.u - x) * zu, 0.0).sum())
+    obj = psol.obj.to(dt)
+    conv = psol.converged.to(torch.bool)
+    return IPMSolution(
+        x, y, zl, zu, obj, conv, psol.iterations.to(torch.int64),
+        psol.res_primal.to(dt), psol.res_dual.to(dt),
+        comp / (1.0 + obj.abs()), torch.where(conv, 0, 1).to(torch.int64),
+    )
+
+
+def _pdhg_row_from_ipm(isol, slp: SparseLP):
+    """IPMSolution -> PDHGSolution row for a sparse LP (the bound duals
+    dropped; the other fields map one to one)."""
+    from ..solvers.pdhg import PDHGSolution
+
+    dt = slp.b.dtype
+    return PDHGSolution(
+        isol.x.to(dt), isol.y.to(dt), isol.obj.to(dt), isol.converged.to(torch.bool),
+        isol.iterations.to(torch.int64), isol.res_primal.to(dt),
+        isol.res_dual.to(dt), torch.zeros((), dtype=torch.int32, device=isol.x.device),
+    )

@@ -13,8 +13,9 @@ def _np(v) -> np.ndarray:
 
 
 def batch_stats(sol) -> dict:
-    """Self-diagnosing statistics for a batched IPM solution: converged
-    fraction, iteration histogram, and residual quantiles. Non-finite
+    """Self-diagnosing statistics for a batched IPM or PDHG solution:
+    converged fraction, iteration histogram, residual quantiles, and the
+    PDLP restart counts where the solution has them. Non-finite
     entries are clamped out of the histogram/quantiles and counted in
     `nonfinite_count` instead of crashing the report."""
     from ..solvers.ipm import status_name
@@ -57,6 +58,14 @@ def batch_stats(sol) -> dict:
             "max": float(vf.max()),
         }
     stats["nonfinite_count"] = nonfinite
+    # PDLP restart counts (solvers/pdhg.py, adaptive_restarts): how often
+    # the lanes snapped back to their running averages; solutions without
+    # the field (IPM) skip it
+    if hasattr(sol, "restarts"):
+        r = np.atleast_1d(_np(sol.restarts).astype(np.float64))
+        rfin = r[np.isfinite(r)]
+        if rfin.size:
+            stats["restarts"] = {"total": int(rfin.sum()), "max": int(rfin.max())}
     if hasattr(sol, "status"):
         codes = np.atleast_1d(_np(sol.status))
         stats["status"] = {

@@ -357,20 +357,23 @@ def test_adaptive_remedy_substitutes_the_sick_row():
 
 
 def test_remedy_coercions_and_refusals():
-    # the dense lane switch waits for PDHG: refused when the engine is built
-    with pytest.raises(NotImplementedError, match="PDHG"):
-        TR.RemedyEngine()
-    with pytest.raises(NotImplementedError, match="PDHG"):
-        TR.as_remedy(True, entry="solve_lp")
-    with pytest.raises(NotImplementedError, match="PDHG"):
-        TA.solve_lp_adaptive(_tlp(_small(_SICK, _SICK)), remedy=True, **_SICK_KW)
+    # the default policy builds for a dense engine: its lane switch re-solves
+    # through PDHG (tests/test_torch_pdhg.py), so a batch of two sick lanes
+    # recovers at "regularize" with every rung allowed
+    assert TR.RemedyEngine().policy == TR.RemedyPolicy()
+    assert isinstance(TR.as_remedy(True, entry="solve_lp"), TR.RemedyEngine)
+    stats = {}
+    TA.solve_lp_adaptive(_tlp(_small(_SICK, _SICK)), remedy=True, stats=stats, **_SICK_KW)
+    assert [r["rung"] for r in stats["remediated"].values()] == ["regularize"] * 2
     eng = TR.as_remedy(True, entry="solve_lp_banded")
     assert isinstance(eng, TR.RemedyEngine) and TR.as_remedy(eng) is eng
-    assert eng._rung_lane_switch(None, None) == "no_paired_lane"
+    assert eng._rung_lane_switch("BandedLP", None, None) == "no_paired_lane"
     assert TR.as_remedy(None) is None
     got = TR.as_remedy({"max_attempts": 2, "allow_lane_switch": False})
-    assert got.policy.max_attempts == 2 and got._rung_lane_switch(None, None) == "disabled"
-    assert got._rung_float64(_tlp(_small(_SICK)), None) == "already_f64"
+    assert got.policy.max_attempts == 2
+    assert got._rung_lane_switch("LPData", None, None) == "disabled"
+    assert got._rung_float64("LPData", _tlp(_small(_SICK)), None) == "already_f64"
+    assert got._rung_regularize("SparseLP", None, None) == "no_reg_knob"
 
 
 # ---------------------------------------------------------------------
@@ -414,7 +417,7 @@ def test_cli_refusals_match_jax(tmp_path):
             TW.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", **{opt: True})
 
 
-@pytest.mark.parametrize("opt", ["perf", "conformance", "lanes", "lane_policy",
+@pytest.mark.parametrize("opt", ["perf", "lanes", "lane_policy",
                                  "warm_predictor", "lane_model"])
 def test_unported_adaptive_options_are_refused(opt, band):
     lp = _tlp(_small(_HEALTHY, _HEALTHY))

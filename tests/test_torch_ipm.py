@@ -105,5 +105,5 @@ def test_batch_lanes_and_trace_match_jax():
         assert int(one.iterations) == n
         assert float(one.obj) == pytest.approx(float(got.obj[i]), rel=1e-10)
         assert tuple(one_tr.gap.shape) == (max_iter,)
-    with pytest.raises(NotImplementedError):
-        solve_lp_adaptive(tbatch, conformance=True)
+    with pytest.raises(NotImplementedError):  # an adaptive option not ported yet
+        solve_lp_adaptive(tbatch, perf=True)

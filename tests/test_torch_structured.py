@@ -148,8 +148,8 @@ def test_guards_match_jax(case120):
         TS.solve_lp_banded(tmeta, tblp, mesh=object())
     with pytest.raises(ValueError, match="sharding"):
         TS.solve_lp_banded_batch(tmeta, tblp, sharding=object())
-    with pytest.raises(NotImplementedError):
-        solve_lp_banded_adaptive(tmeta, tblp, conformance=True)
+    with pytest.raises(NotImplementedError):  # an adaptive option not ported yet
+        solve_lp_banded_adaptive(tmeta, tblp, perf=True)
     # pure f32 data IS allowed under "fused" (one iteration suffices here)
     b32 = TS.BandedLP(*(a.float() for a in tblp))
     with pytest.warns(TS.SmallTF32Warning):
