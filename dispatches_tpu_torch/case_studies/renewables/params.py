@@ -85,6 +85,34 @@ def load_rts303():
     return {k: z[k] for k in z.files}
 
 
+def load_re_goldens(device="cuda"):
+    """Inputs of the reference's golden-dollar tests, from vendored data
+    (the JAX package's `load_re_goldens`).
+
+    Mirrors the `input_params` fixture of
+    `dispatches/case_studies/renewables_case/tests/test_RE_flowsheet.py:24-44`:
+    DA LMPs are the *second* array in ``rts_results_all_prices.npy`` clipped
+    at $200/MWh (8,736 h), and hourly wind capacity factors come from the
+    Wind Toolkit SRW file's 80 m speed column through the PySAM-parity
+    Weibull powercurve model (`units/powercurve.py::capacity_factor_pysam`,
+    computed on `device` in float64), replacing the per-hour PySAM runs of
+    `wind_power.py:170-183`. Both files are read by path from the JAX
+    package's data directory; the arrays come back as numpy.
+    """
+    import torch
+
+    from ...units.powercurve import capacity_factor_pysam, read_srw_wind_speeds
+
+    with open(DATA_DIR / "rts_results_all_prices.npy", "rb") as f:
+        _ = np.load(f)
+        prices = np.load(f)
+    prices = prices.copy()
+    prices[prices > 200.0] = 200.0
+    speeds = read_srw_wind_speeds(DATA_DIR / "windtoolkit_2012_60min_80m.srw")
+    cfs = capacity_factor_pysam(torch.as_tensor(speeds, dtype=torch.float64, device=device))
+    return {"da_lmp": prices, "wind_speed_m_s": speeds, "wind_cf": cfs.cpu().numpy()}
+
+
 @dataclasses.dataclass
 class RenewableInputParams:
     """The analogue of `default_input_params` (`load_parameters.py:123-140`)."""

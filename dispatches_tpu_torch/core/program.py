@@ -4,7 +4,8 @@ Port of `dispatches_tpu/core/program.py`: a model is lowered once to static
 numpy index arrays; ``instantiate(params)`` scatters parameter values into
 standard-form LP tensors ``min c.x s.t. A x = b, l <= x <= u`` on a torch
 device. The scatter-adds of the JAX version (``.at[].add``) are
-``index_put_(..., accumulate=True)`` here.
+`_scatter_add` here: ``index_put_(..., accumulate=True)``, with repeated
+indices summed in entry order on every device.
 
 Parameters may carry leading batch axes (for example ``lmp`` of shape
 ``(B, T)``): every parametric field then gains the same leading axes, the
@@ -134,29 +135,44 @@ def _collect(exprs: List[Expr], row_offsets: List[int]):
 
 def _scatter_add(a: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
     """``a[..., idx] += vals`` with duplicate indices accumulated, for `a` of
-    shape (*lead, n) and `vals` broadcastable to (*lead, len(idx))."""
-    idx = torch.as_tensor(np.asarray(idx, np.int64), device=a.device)
-    if idx.numel() == 0:
+    shape (*lead, n) and `vals` broadcastable to (*lead, len(idx)), summed
+    in entry order on every device: the result is the CPU's sequential
+    ``index_put_(accumulate=True)``, bit for bit.
+
+    An index that occurs once takes one add on `a`'s device, the same in
+    any order. The entries of repeated indices are folded on the CPU, in
+    entry order, onto `a`'s values there and written back: on a CUDA
+    device ``index_put_(accumulate=True)`` sums repeats in another order
+    than the CPU (the design LP's cost columns, and ``eval_expr``'s NPV
+    row, which sums every hour of the horizon). Differentiable in `vals`
+    and `a`, as the plain scatter is."""
+    idx = np.asarray(idx, np.int64)
+    if idx.size == 0:
         return a
+    dev = a.device
     lead, n = a.shape[:-1], a.shape[-1]
     nb = int(np.prod(lead)) if lead else 1
-    vals = torch.broadcast_to(vals, (*lead, idx.numel())).reshape(-1)
-    flat = (torch.arange(nb, device=a.device)[:, None] * n + idx[None, :]).reshape(-1)
-    a.reshape(-1).index_put_((flat,), vals, accumulate=True)
+    vals = torch.broadcast_to(vals, (*lead, idx.size)).reshape(nb, idx.size)
+    flat = a.reshape(-1)  # a view: `a` is contiguous
+    offs = torch.arange(nb, device=dev)[:, None] * n
+    _, inv, counts = np.unique(idx, return_inverse=True, return_counts=True)
+    rep = counts[inv] > 1
+    if not rep.all():
+        once = np.nonzero(~rep)[0]
+        tgt = offs + torch.as_tensor(idx[once], device=dev)[None, :]
+        flat.index_put_((tgt.reshape(-1),),
+                        vals[:, torch.as_tensor(once, device=dev)].reshape(-1),
+                        accumulate=True)
+    if rep.any():
+        sel = np.nonzero(rep)[0]
+        targets, local = np.unique(idx[sel], return_inverse=True)
+        tgt = (offs + torch.as_tensor(targets, device=dev)[None, :]).reshape(-1)
+        loc = (torch.arange(nb)[:, None] * targets.size
+               + torch.as_tensor(local.reshape(-1))[None, :]).reshape(-1)
+        contrib = vals[:, torch.as_tensor(sel, device=dev)].reshape(-1).cpu()
+        folded = flat[tgt].cpu().index_put((loc,), contrib, accumulate=True)
+        flat.index_put_((tgt,), folded.to(dev))
     return a
-
-
-def _presum(idx, vals, n: int, dtype, device):
-    """Static scatter-add triplets summed on the host in entry order, the
-    order of a sequential scatter: (unique indices, their sums). On a CUDA
-    device the accumulation order of repeated indices is not the CPU's (the
-    design LP's cost has two columns of 169 terms each), so repeats are
-    summed here once and reach the device one per index."""
-    npd = torch.empty(0, dtype=dtype).numpy().dtype
-    acc = np.zeros(n, npd)
-    np.add.at(acc, idx, np.asarray(vals).astype(npd))
-    uniq = np.unique(idx)
-    return uniq, torch.as_tensor(acc[uniq], device=device)
 
 
 class _ParamSource:
@@ -392,11 +408,11 @@ class CompiledLP:
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
         b = torch.zeros(*lead, self.M, dtype=dtype, device=device)
-        _scatter_add(b, *_presum(self.b_rows, self.b_vals, self.M, dtype, device))
+        _scatter_add(b, self.b_rows, t(self.b_vals))
         for k, (rows, scale, pidx) in self.b_pgroups.items():
             _scatter_add(b, rows, t(scale) * src.take(k, pidx))
         c = torch.zeros(*lead, self.N, dtype=dtype, device=device)
-        _scatter_add(c, *_presum(self.c_cols, self.c_vals, self.N, dtype, device))
+        _scatter_add(c, self.c_cols, t(self.c_vals))
         for k, (cols, scale, pidx) in self.c_pgroups.items():
             _scatter_add(c, cols, t(scale) * src.take(k, pidx))
         c0 = torch.full(lead, self.c0_val, dtype=dtype, device=device)

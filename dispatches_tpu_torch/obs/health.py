@@ -17,6 +17,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from . import metrics as _metrics
+
 
 def _host(v, dtype=None) -> np.ndarray:
     """`v` (a tensor on any device, an array or a number) as numpy."""
@@ -72,6 +74,12 @@ def severity(verdict: str) -> int:
         return SEVERITY.index(verdict)
     except ValueError:
         return len(SEVERITY)  # unknown names sort worst — fail loud in UIs
+
+
+def worst_verdict(verdicts: List[Verdict]) -> Verdict:
+    if not verdicts:
+        return Verdict("healthy")
+    return max(verdicts, key=lambda v: severity(v.verdict))
 
 
 # ---------------------------------------------------------------------------
@@ -370,3 +378,30 @@ def health_summary(sol, trace=None, budget: Optional[int] = None) -> Optional[di
     else:
         rec["verdicts_truncated"] = len(verdicts)
     return rec
+
+
+def verdict_from_stats(stats: dict) -> str:
+    """Coarse verdict from a `batch_stats` dict (the sweep runners carry
+    these where no solution object survives): nonfinite beats unconverged
+    beats healthy."""
+    if not isinstance(stats, dict) or not stats:
+        return "healthy"
+    if stats.get("nonfinite_count"):
+        return "nonfinite"
+    cf = stats.get("converged_frac")
+    if isinstance(cf, (int, float)) and cf < 1.0:
+        return "stalled"
+    return "healthy"
+
+
+def note_verdicts(summary_or_counts, solve: str) -> None:
+    """Bump `solve_verdict_total{solve=...,verdict=...}` counters from a
+    `health_summary` record (or a bare counts dict)."""
+    counts = summary_or_counts
+    if isinstance(summary_or_counts, dict) and "counts" in summary_or_counts:
+        counts = summary_or_counts["counts"]
+    if not isinstance(counts, dict):
+        return
+    for verdict, n in counts.items():
+        if isinstance(n, (int, float)) and n:
+            _metrics.inc("solve_verdict_total", float(n), solve=solve, verdict=str(verdict))

@@ -1,6 +1,7 @@
 """Process-wide metrics registry (port of the counters, gauges and
 histograms of `dispatches_tpu/obs/metrics.py`: `inc`, `set_gauge`,
-`observe`, `describe`, `snapshot`).
+`observe`, `describe`, `snapshot`, and the journal's span deltas
+`flat_values` / `counter_delta`).
 
 Host-side only: metric calls take Python numbers, and solver results are
 the same with the registry in use. Series identity is ``(name, sorted
@@ -135,6 +136,32 @@ class MetricsRegistry:
                 },
             }
 
+    def flat_values(self) -> Dict[str, float]:
+        """Monotone series as one flat {series: value} dict (counters plus
+        per-histogram ``_count`` / ``_sum``): the basis of the journal's
+        span-end deltas. Gauges are left out: a gauge's change over a span
+        means nothing."""
+        with self._lock:
+            out = {series_name(n, dict(ls)): v for (n, ls), v in self._counters.items()}
+            for (n, ls), h in self._hists.items():
+                base = series_name(n, dict(ls))
+                out[base + "_count"] = float(h.count)
+                out[base + "_sum"] = h.sum
+            return out
+
+
+def counter_delta(
+    before: Mapping[str, float], after: Mapping[str, float]
+) -> Dict[str, float]:
+    """Per-series increase between two `flat_values()` snapshots (nonzero
+    entries only)."""
+    out: Dict[str, float] = {}
+    for series, v in after.items():
+        d = v - before.get(series, 0.0)
+        if d:
+            out[series] = d
+    return out
+
 
 _REGISTRY = MetricsRegistry()
 
@@ -165,6 +192,10 @@ def describe(name: str, text: str) -> None:
 
 def snapshot() -> Dict[str, Dict[str, Any]]:
     return _REGISTRY.snapshot()
+
+
+def flat_values() -> Dict[str, float]:
+    return _REGISTRY.flat_values()
 
 
 def reset_metrics() -> None:

@@ -23,10 +23,15 @@ The engine dispatches on the problem's type (`LPData`, `SparseLP`,
 (``"no_reg_knob"``). Every rung tried counts in
 ``remediation_attempts_total{rung,entry}``; a rung that cures the lane
 counts in
-``remediation_recovered_total{verdict,rung}`` and ends the ladder. The
-JAX package's journal event and flight-recorder capture have no
-counterpart in the port yet; the outcome and its history go into the
-adaptive entry points' ``stats["remediated"]``.
+``remediation_recovered_total{verdict,rung}`` and ends the ladder. Every
+call journals a ``remediation`` event (entry, original verdict, outcome,
+the rung-by-rung history) to the installed tracer, and a give-up is
+captured by the installed flight recorder: the problem, the options, the
+``unrecoverable`` verdict and, when the ``cold`` rung ran, its re-solve
+(the original options without a warm start, which a replay of the
+capture reproduces). The outcome also goes into the adaptive entry
+points' ``stats["remediated"]``. The JAX package's request ids and
+deadlines belong to its serving tier.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ import torch
 from ..core.program import LPData, SparseLP
 from ..obs import health as obs_health
 from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
+from ..obs.journal import get_tracer
 
 # verdicts the ladder knows how to attack; the others are policy or
 # process failures, which a re-solve would not change
@@ -128,6 +135,7 @@ class RemedyEngine:
         attempts = 0
         won = None
         sol = None
+        cold = None  # the cold rung's re-solve, kept for a give-up capture
         for rung in RUNGS:
             if attempts >= pol.max_attempts:
                 break
@@ -141,6 +149,8 @@ class RemedyEngine:
             attempts += 1
             obs_metrics.inc("remediation_attempts_total", rung=rung, entry=self.entry)
             cand, budget = result
+            if rung == "cold":
+                cold = cand
             v = obs_health.classify_solution(cand, budget=budget)
             name = v[0].verdict if v else "unknown"
             history.append((rung, name))
@@ -161,6 +171,23 @@ class RemedyEngine:
                 f"(original: {original}; "
                 + ", ".join(f"{r}={n}" for r, n in history) + ")",
             )
+            obs_recorder.maybe_capture(
+                self.entry,
+                verdict=final,
+                problem=problem,
+                solution=cold,
+                options=dict(self.solver_kw),
+                extra={"remediation": [list(h) for h in history]},
+            )
+        get_tracer().event(
+            "remediation",
+            entry=self.entry,
+            original=original,
+            recovered=won is not None,
+            rung=won,
+            attempts=attempts,
+            rungs=[f"{r}:{n}" for r, n in history],
+        )
         return RemedyOutcome(sol, final, won, attempts, tuple(history))
 
     # -- the rungs: each returns (solution, classify budget), or a short

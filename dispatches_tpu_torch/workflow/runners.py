@@ -16,8 +16,18 @@ re-run (the reference's `result_*.json` skip idiom,
 batch), ``--adaptive`` (converged lanes retire and the batch compacts,
 `runtime/adaptive.py`) and ``--remedy`` (the remediation ladder on
 unhealthy lanes, `runtime/remedy.py`; needs ``--adaptive``); none of them
-changes the store keys. Not ported yet, and refused rather than ignored:
-journal/tracer spans, per-iteration traces in the sweep and cost records.
+changes the store keys.
+
+Observability, as in the JAX package: ``--journal PATH`` appends a JSONL
+run journal (manifest, spans, solve events; read it with
+`tools/trace_summary.py`), ``--record-failures DIR`` captures every failed
+or unhealthy solve into a capped ring buffer (replay with
+`tools/torch_replay_solve.py`), and ``--profile-dir DIR`` writes a
+`torch.profiler` trace of the whole command. The runners take ``tracer=``
+(default: the process tracer) and `run_year_sweep` ``trace=True``
+(per-iteration traces, summarized in the journal). Cost records (the JAX
+package's ``cost=`` / ``--cost``, its XLA cost model) are not ported and
+are refused.
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..obs import health as obs_health
+from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
+from ..obs.journal import get_tracer
 from ..runtime.native import ResultStore
 from ..solvers.ipm import _reject_deferred
 
@@ -66,7 +80,10 @@ def run_pricetaker(
 ):
     """Price-taker design sweep over H2 prices (one weekly-scale design LP
     per price, dense IPM), with checkpoint/skip: converged points go to
-    the store at `store_path`, and points already there are skipped."""
+    the store at `store_path`, and points already there are skipped.
+    Journals a ``pricetaker`` span holding a ``point_<i>`` span and a
+    ``point_result`` event per solved point to `tracer` (default: the
+    process tracer)."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import (
         wind_battery_optimize,
@@ -74,57 +91,68 @@ def run_pricetaker(
         wind_battery_pem_tank_turb_optimize,
     )
 
-    _reject_deferred(tracer=tracer)
     if topology not in TOPOLOGIES:
         raise ValueError(f"topology must be one of {TOPOLOGIES}")
+    tracer = tracer if tracer is not None else get_tracer()
     data = P.load_rts303()
     h2_prices = h2_prices or [2.0]
     store, done = _open_store(store_path)
     out = []
-    for i, h2 in enumerate(h2_prices):
-        key = _point_key(topology, hours, h2)
-        if key in done:
+    with tracer.span("pricetaker", topology=topology, hours=hours):
+        for i, h2 in enumerate(h2_prices):
+            key = _point_key(topology, hours, h2)
+            if key in done:
+                if verbose:
+                    print(f"[{i}] h2=${h2}/kg: checkpointed, skipping")
+                tracer.event("skip_checkpointed", point=i, h2_price=h2)
+                obs_metrics.inc("sweep_points_skipped_total", runner="pricetaker")
+                continue
+            with tracer.span(f"point_{i}", h2_price=h2):
+                if topology == "wind_battery":
+                    res = wind_battery_optimize(
+                        hours, data["da_lmp"], data["da_wind_cf"], device=device
+                    )
+                elif topology == "wind_pem":
+                    res = wind_battery_pem_optimize(
+                        hours, data["da_lmp"], data["da_wind_cf"], h2_price_per_kg=h2,
+                        device=device,
+                    )
+                else:
+                    res = wind_battery_pem_tank_turb_optimize(
+                        hours, data["da_lmp"], data["da_wind_cf"], h2_price_per_kg=h2,
+                        device=device,
+                    )
+            rec = {
+                "h2_price": h2,
+                "NPV": res["NPV"],
+                "annual_revenue": res["annual_revenue"],
+                "pem_kw": res.get("pem_kw", 0.0),
+                "batt_kw": res.get("batt_kw", 0.0),
+                "solver_stats": res.get("solver_stats", {}),
+            }
+            out.append(rec)
+            obs_metrics.inc("sweep_points_total", runner="pricetaker")
+            verdict = obs_health.verdict_from_stats(rec["solver_stats"])
+            obs_health.note_verdicts({verdict: 1}, solve="pricetaker")
+            tracer.event(
+                "point_result", point=i, h2_price=h2, NPV=rec["NPV"],
+                solver_stats=rec["solver_stats"], verdict=verdict,
+            )
+            if store and res["converged"]:
+                store.append(
+                    key,
+                    [h2, rec["NPV"], rec["annual_revenue"], rec["pem_kw"], rec["batt_kw"]],
+                )
             if verbose:
-                print(f"[{i}] h2=${h2}/kg: checkpointed, skipping")
-            continue
-        if topology == "wind_battery":
-            res = wind_battery_optimize(
-                hours, data["da_lmp"], data["da_wind_cf"], device=device
-            )
-        elif topology == "wind_pem":
-            res = wind_battery_pem_optimize(
-                hours, data["da_lmp"], data["da_wind_cf"], h2_price_per_kg=h2,
-                device=device,
-            )
-        else:
-            res = wind_battery_pem_tank_turb_optimize(
-                hours, data["da_lmp"], data["da_wind_cf"], h2_price_per_kg=h2,
-                device=device,
-            )
-        rec = {
-            "h2_price": h2,
-            "NPV": res["NPV"],
-            "annual_revenue": res["annual_revenue"],
-            "pem_kw": res.get("pem_kw", 0.0),
-            "batt_kw": res.get("batt_kw", 0.0),
-            "solver_stats": res.get("solver_stats", {}),
-        }
-        out.append(rec)
-        if store and res["converged"]:
-            store.append(
-                key,
-                [h2, rec["NPV"], rec["annual_revenue"], rec["pem_kw"], rec["batt_kw"]],
-            )
-        if verbose:
-            st = res.get("solver_stats", {})
-            it = st.get("iterations", {})
-            print(
-                f"[{i}] h2=${h2}/kg: NPV ${rec['NPV']:.3e} "
-                f"pem {rec['pem_kw']:.0f} kW | converged "
-                f"{st.get('converged_frac', float('nan')):.3f}, "
-                f"iters {it.get('median', '?')}, "
-                f"gap {st.get('gap', {}).get('max', float('nan')):.1e}"
-            )
+                st = res.get("solver_stats", {})
+                it = st.get("iterations", {})
+                print(
+                    f"[{i}] h2=${h2}/kg: NPV ${rec['NPV']:.3e} "
+                    f"pem {rec['pem_kw']:.0f} kW | converged "
+                    f"{st.get('converged_frac', float('nan')):.3f}, "
+                    f"iters {it.get('median', '?')}, "
+                    f"gap {st.get('gap', {}).get('max', float('nan')):.1e}"
+                )
     return out
 
 
@@ -143,45 +171,62 @@ def run_battery_ratio_sweep(
     per grid point there; one checkpointed in-process solve per point
     here). Battery power is fixed at ratio x wind capacity; duration sets
     both the SoC dynamics and the $/kWh capex leg. Converged points go to
-    the store at `store_path`; points already there are skipped."""
+    the store at `store_path`; points already there are skipped. Journals
+    a ``battery_ratio_sweep`` span holding a ``point_<i>`` span and a
+    ``point_result`` event per solved point to `tracer` (default: the
+    process tracer)."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import wind_battery_optimize
 
-    _reject_deferred(tracer=tracer)
+    tracer = tracer if tracer is not None else get_tracer()
     data = P.load_rts303()
     if wind_mw is None:
         wind_mw = P.FIXED_WIND_MW
     grid = [(r, d) for r in ratios for d in durations]
     store, done = _open_store(store_path)
     out = []
-    for i, (ratio, dur) in enumerate(grid):
-        key = _point_key(ratio, dur, hours, wind_mw)
-        if key in done:
-            if verbose:
-                print(f"[{i}] ratio={ratio} dur={dur}h: checkpointed, skipping")
-            continue
-        res = wind_battery_optimize(
-            hours, data["da_lmp"], data["da_wind_cf"], batt_mw=ratio * wind_mw,
-            wind_mw=wind_mw, design_opt=False, battery_duration_hrs=float(dur),
-            device=device,
-        )
-        rec = {
-            "battery_ratio": ratio,
-            "duration_hrs": dur,
-            "batt_mw": ratio * wind_mw,
-            "NPV": res["NPV"],
-            "annual_revenue": res["annual_revenue"],
-            "converged": bool(res["converged"]),
-            "solver_stats": res.get("solver_stats", {}),
-        }
-        out.append(rec)
-        if store and rec["converged"]:
-            store.append(key, [ratio, float(dur), rec["NPV"], rec["annual_revenue"]])
-        if verbose:
-            print(
-                f"[{i}] ratio={ratio} dur={dur}h: NPV ${rec['NPV']:.3e} "
-                f"rev ${rec['annual_revenue']:.3e}"
+    with tracer.span("battery_ratio_sweep", hours=hours, points=len(grid)):
+        for i, (ratio, dur) in enumerate(grid):
+            key = _point_key(ratio, dur, hours, wind_mw)
+            if key in done:
+                if verbose:
+                    print(f"[{i}] ratio={ratio} dur={dur}h: checkpointed, skipping")
+                tracer.event("skip_checkpointed", point=i, ratio=ratio, duration=dur)
+                obs_metrics.inc("sweep_points_skipped_total", runner="battsweep")
+                continue
+            with tracer.span(f"point_{i}", ratio=ratio, duration_hrs=dur):
+                res = wind_battery_optimize(
+                    hours, data["da_lmp"], data["da_wind_cf"], batt_mw=ratio * wind_mw,
+                    wind_mw=wind_mw, design_opt=False, battery_duration_hrs=float(dur),
+                    device=device,
+                )
+            rec = {
+                "battery_ratio": ratio,
+                "duration_hrs": dur,
+                "batt_mw": ratio * wind_mw,
+                "NPV": res["NPV"],
+                "annual_revenue": res["annual_revenue"],
+                "converged": bool(res["converged"]),
+                "solver_stats": res.get("solver_stats", {}),
+            }
+            out.append(rec)
+            obs_metrics.inc("sweep_points_total", runner="battsweep")
+            if not rec["converged"]:
+                obs_metrics.inc("sweep_points_unconverged_total", runner="battsweep")
+            verdict = obs_health.verdict_from_stats(rec["solver_stats"])
+            obs_health.note_verdicts({verdict: 1}, solve="battsweep")
+            tracer.event(
+                "point_result", point=i, ratio=ratio, duration_hrs=dur,
+                NPV=rec["NPV"], converged=rec["converged"],
+                solver_stats=rec["solver_stats"], verdict=verdict,
             )
+            if store and rec["converged"]:
+                store.append(key, [ratio, float(dur), rec["NPV"], rec["annual_revenue"]])
+            if verbose:
+                print(
+                    f"[{i}] ratio={ratio} dur={dur}h: NPV ${rec['NPV']:.3e} "
+                    f"rev ${rec['annual_revenue']:.3e}"
+                )
     return out
 
 
@@ -287,18 +332,27 @@ def run_year_sweep(
     `adaptive`) runs the `runtime.remedy` ladder on lanes that retire
     unhealthy. Records say whether their batch was ``warm_started``. None
     of the three changes the store keys; all default off, leaving the
-    plain solve untouched."""
+    plain solve untouched.
+
+    The sweep journals a ``year_sweep`` span holding one ``batch_<n>``
+    span per batch to `tracer` (default: the process tracer), each with a
+    ``year_batch`` solve event: `batch_stats`, health verdicts, the
+    adaptive stats, and with ``trace=True`` the per-iteration traces'
+    summary. With a flight recorder installed, a batch with an unhealthy
+    lane is captured (`solve_lp_banded_batch`, archival: the static
+    structure is not serialized). ``cost=True`` (the JAX package's XLA
+    cost records) is refused."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import HybridDesign, build_pricetaker
-    from ..obs import metrics as obs_metrics
     from ..runtime.adaptive import solve_lp_banded_adaptive
     from ..runtime.telemetry import batch_stats
     from ..solvers.structured import extract_time_structure, solve_lp_banded_batch
 
-    _reject_deferred(tracer=tracer, trace=trace, cost=cost)
+    _reject_deferred(cost=cost)
     if remedy and not adaptive:
         raise ValueError("remedy requires adaptive=True (the ladder acts on "
                          "the lanes the adaptive solve retires)")
+    tracer = tracer if tracer is not None else get_tracer()
     tdtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     data = P.load_rts303()
     design = HybridDesign(
@@ -339,78 +393,113 @@ def run_year_sweep(
     if warm_starts:
         # neighbour seeding wants adjacent scales in adjacent batches
         pending.sort(key=lambda k: scales[k])
-    if len(pending) < scenarios and verbose:
-        print(f"{scenarios - len(pending)} scenarios checkpointed, skipping")
+    if len(pending) < scenarios:
+        obs_metrics.inc("year_scenarios_skipped_total", scenarios - len(pending),
+                        runner="yearsweep")
+        if verbose:
+            print(f"{scenarios - len(pending)} scenarios checkpointed, skipping")
     out = []
     prev_sols = None  # (scales, x, y, zl, zu) of the previous batch, host copies
     cold_iter_mean = None  # the first (cold) batch's mean iterations
-    for lo in range(0, len(pending), batch):
-        todo = pending[lo : lo + batch]
-        # pad to the fixed batch width, as the JAX runner does
-        padded = todo + [todo[-1]] * (batch - len(todo))
-        lmps = torch.as_tensor(
-            np.asarray(scales)[padded, None] * base_lmp[None, :],
-            dtype=tdtype, device=device,
-        )
-        params = {"lmp": lmps, "wind_cf": cf}
-        blp_b = meta.instantiate(params, dtype=tdtype, device=device)
-        warm_b = None
-        if warm_starts and prev_sols is not None:
-            # the nearest solved neighbour (by LMP scale) seeds each lane
-            ps, *fields = prev_sols
-            nn = [int(np.argmin(np.abs(ps - scales[k]))) for k in padded]
-            warm_b = tuple(torch.as_tensor(a[nn], device=device) for a in fields)
-        ad_stats = {} if adaptive else None
-        if lmps.device.type == "cuda":
-            torch.cuda.synchronize(lmps.device)
-        t0 = time.perf_counter()
-        if adaptive:
-            sol = solve_lp_banded_adaptive(meta, blp_b, warm_start=warm_b, stats=ad_stats,
-                                           remedy=remedy, **solver_kw)
-        else:
-            sol = solve_lp_banded_batch(meta, blp_b, warm_start=warm_b, **solver_kw)
-        convs = sol.converged.cpu().numpy()[: len(todo)]
-        solve_wall = time.perf_counter() - t0
-        npvs = prog.eval_expr("NPV", sol.x, params).cpu().numpy()[: len(todo)]
-        stats = batch_stats(sol)
-        iters_b = sol.iterations.cpu().numpy()[: len(todo)]
-        if warm_b is None:
-            if cold_iter_mean is None:
-                cold_iter_mean = float(iters_b.mean())
-        else:
-            # against the cold first batch: an estimate (the cold path is not
-            # re-solved), consistent across the batches of one sweep
-            saved = cold_iter_mean * len(todo) - float(iters_b.sum())
-            if saved > 0:
-                obs_metrics.inc("warm_start_iters_saved_total", saved,
-                                runner="yearsweep", source="neighbor")
-        if warm_starts:
-            prev_sols = (np.asarray(scales)[padded],
-                         *(getattr(sol, f).cpu().numpy() for f in ("x", "y", "zl", "zu")))
-        for j, k in enumerate(todo):
-            rec = {
-                "scenario": k,
-                "lmp_scale": float(scales[k]),
-                "NPV": float(npvs[j]),
-                "converged": bool(convs[j]),
-                "iterations": int(iters_b[j]),
-                "solver_stats": stats,
-                "batch_seconds": solve_wall,
-                "warm_started": warm_b is not None,
-            }
-            if adaptive:
-                rec["adaptive_stats"] = ad_stats
-            out.append(rec)
-            if store and rec["converged"]:
-                store.append(keys(k)[0], [rec["lmp_scale"], rec["NPV"], 1.0])
-        if verbose:
-            print(
-                f"[{todo[0]}..{todo[-1]}] {len(todo)} year-LPs"
-                f"{' (warm-started)' if warm_b is not None else ''}: "
-                f"converged {int(convs.sum())}/{len(todo)}, "
-                f"NPV ${npvs.min():.3e}..${npvs.max():.3e}, "
-                f"iterations {iters_b.tolist()}, {solve_wall:.1f} s"
-            )
+    with tracer.span("year_sweep", scenarios=scenarios, batch=batch, hours=hours,
+                     dtype=str(tdtype).removeprefix("torch.")):
+        for lo in range(0, len(pending), batch):
+            todo = pending[lo : lo + batch]
+            with tracer.span(f"batch_{lo // batch}", scenarios=[int(k) for k in todo]):
+                # pad to the fixed batch width, as the JAX runner does
+                padded = todo + [todo[-1]] * (batch - len(todo))
+                lmps = torch.as_tensor(
+                    np.asarray(scales)[padded, None] * base_lmp[None, :],
+                    dtype=tdtype, device=device,
+                )
+                params = {"lmp": lmps, "wind_cf": cf}
+                blp_b = meta.instantiate(params, dtype=tdtype, device=device)
+                warm_b = None
+                if warm_starts and prev_sols is not None:
+                    # the nearest solved neighbour (by LMP scale) seeds each lane
+                    ps, *fields = prev_sols
+                    nn = [int(np.argmin(np.abs(ps - scales[k]))) for k in padded]
+                    warm_b = tuple(torch.as_tensor(a[nn], device=device) for a in fields)
+                ad_stats = {} if adaptive else None
+                if lmps.device.type == "cuda":
+                    torch.cuda.synchronize(lmps.device)
+                t0 = time.perf_counter()
+                if adaptive:
+                    solve_out = solve_lp_banded_adaptive(
+                        meta, blp_b, warm_start=warm_b, stats=ad_stats, remedy=remedy,
+                        trace=trace, **solver_kw)
+                else:
+                    solve_out = solve_lp_banded_batch(
+                        meta, blp_b, warm_start=warm_b, trace=trace, **solver_kw)
+                sol, sol_tr = solve_out if trace else (solve_out, None)
+                convs = sol.converged.cpu().numpy()[: len(todo)]
+                solve_wall = time.perf_counter() - t0
+                npvs = prog.eval_expr("NPV", sol.x, params).cpu().numpy()[: len(todo)]
+                stats = batch_stats(sol)
+                iters_b = sol.iterations.cpu().numpy()[: len(todo)]
+                n_conv = int(convs.sum())
+                obs_metrics.inc("year_scenarios_solved_total", n_conv, runner="yearsweep")
+                if len(todo) - n_conv:
+                    obs_metrics.inc("year_scenarios_unconverged_total", len(todo) - n_conv,
+                                    runner="yearsweep")
+                obs_metrics.inc("ipm_iterations_total", float(iters_b.sum()), runner="yearsweep")
+                if warm_b is None:
+                    if cold_iter_mean is None:
+                        cold_iter_mean = float(iters_b.mean())
+                else:
+                    # against the cold first batch: an estimate (the cold path is
+                    # not re-solved), consistent across the batches of one sweep
+                    saved = cold_iter_mean * len(todo) - float(iters_b.sum())
+                    if saved > 0:
+                        obs_metrics.inc("warm_start_iters_saved_total", saved,
+                                        runner="yearsweep", source="neighbor")
+                if warm_starts:
+                    prev_sols = (np.asarray(scales)[padded], *(
+                        getattr(sol, f).cpu().numpy() for f in ("x", "y", "zl", "zu")))
+                tracer.solve_event(
+                    "year_batch", sol, trace=sol_tr, warm_starts=warm_b is not None,
+                    adaptive=adaptive, iterations_total=int(iters_b.sum()),
+                    **({"adaptive_stats": ad_stats} if ad_stats else {}),
+                )
+                if obs_recorder.get_recorder() is not None:
+                    # the flight recorder: the batch's problem when a lane went bad
+                    summary = obs_health.health_summary(sol, trace=sol_tr)
+                    if summary and summary.get("n_bad"):
+                        w = summary["worst"]
+                        obs_recorder.maybe_capture(
+                            "solve_lp_banded_batch",
+                            verdict=obs_health.Verdict(
+                                w["verdict"], w["first_bad_iteration"], w["quantity"], w["detail"]),
+                            problem=blp_b,
+                            solution=sol,
+                            warm_start=obs_recorder.warm_bundle(blp_b, warm_b),
+                            options={**solver_kw, "block_hours": block_hours},
+                            extra={"scenarios": [int(k) for k in todo]},
+                        )
+                for j, k in enumerate(todo):
+                    rec = {
+                        "scenario": k,
+                        "lmp_scale": float(scales[k]),
+                        "NPV": float(npvs[j]),
+                        "converged": bool(convs[j]),
+                        "iterations": int(iters_b[j]),
+                        "solver_stats": stats,
+                        "batch_seconds": solve_wall,
+                        "warm_started": warm_b is not None,
+                    }
+                    if adaptive:
+                        rec["adaptive_stats"] = ad_stats
+                    out.append(rec)
+                    if store and rec["converged"]:
+                        store.append(keys(k)[0], [rec["lmp_scale"], rec["NPV"], 1.0])
+                if verbose:
+                    print(
+                        f"[{todo[0]}..{todo[-1]}] {len(todo)} year-LPs"
+                        f"{' (warm-started)' if warm_b is not None else ''}: "
+                        f"converged {int(convs.sum())}/{len(todo)}, "
+                        f"NPV ${npvs.min():.3e}..${npvs.max():.3e}, "
+                        f"iterations {iters_b.tolist()}, {solve_wall:.1f} s"
+                    )
     n_unconv = sum(1 for r in out if not r["converged"])
     if n_unconv and verbose:
         print(f"WARNING: {n_unconv} scenarios did not converge "
@@ -422,6 +511,23 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="dispatches-tpu-torch")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default: cuda)")
+    p.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="append-only JSONL run journal (manifest + spans + solve "
+        "events; read it with tools/trace_summary.py)",
+    )
+    p.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="write a torch.profiler trace of the whole command into DIR; "
+        "journal span names label its rows",
+    )
+    p.add_argument(
+        "--record-failures", default=None, metavar="DIR",
+        help="flight recorder: snapshot every failed or unhealthy solve "
+        "(problem arrays + options + manifest) into a capped ring buffer "
+        "under DIR (50 captures / 256 MiB; replay with "
+        "tools/torch_replay_solve.py)",
+    )
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pt = sub.add_parser("pricetaker", help="price-taker design sweep")
@@ -471,25 +577,42 @@ def main(argv=None):
     if getattr(args, "remedy", False) and not args.adaptive:
         p.error("--remedy requires --adaptive (the ladder acts on the "
                 "lanes the adaptive solve retires)")
-    if args.cmd == "pricetaker":
-        run_pricetaker(
-            topology=args.topology, hours=args.hours, h2_prices=args.h2_price,
-            store_path=args.out, device=args.device,
-        )
-    elif args.cmd == "battsweep":
-        run_battery_ratio_sweep(
-            ratios=args.ratio, durations=args.duration, hours=args.hours,
-            store_path=args.out, device=args.device,
-        )
-    else:
-        run_year_sweep(
-            scenarios=args.scenarios, batch=args.batch, hours=args.hours,
-            h2_price=args.h2_price, seed=args.seed, dtype=args.dtype,
-            mixed_precision=not args.no_mixed_precision,
-            correctors=args.correctors, inv_factors=args.inv_factors,
-            store_path=args.out, device=args.device, warm_starts=args.warm_starts,
-            adaptive=args.adaptive, remedy=True if args.remedy else None,
-        )
+    from ..obs.journal import Tracer, set_tracer
+    from ..obs.profile import profile_capture
+    from ..obs.recorder import FlightRecorder, set_recorder
+
+    tracer = Tracer(args.journal, manifest_extra={"cmd": args.cmd}) if args.journal else None
+    prev_tracer = set_tracer(tracer) if tracer is not None else None
+    recorder = FlightRecorder(args.record_failures) if args.record_failures else None
+    prev_recorder = set_recorder(recorder) if recorder is not None else None
+    try:
+        with profile_capture(args.profile_dir):
+            if args.cmd == "pricetaker":
+                run_pricetaker(
+                    topology=args.topology, hours=args.hours, h2_prices=args.h2_price,
+                    store_path=args.out, device=args.device,
+                )
+            elif args.cmd == "battsweep":
+                run_battery_ratio_sweep(
+                    ratios=args.ratio, durations=args.duration, hours=args.hours,
+                    store_path=args.out, device=args.device,
+                )
+            else:
+                run_year_sweep(
+                    scenarios=args.scenarios, batch=args.batch, hours=args.hours,
+                    h2_price=args.h2_price, seed=args.seed, dtype=args.dtype,
+                    mixed_precision=not args.no_mixed_precision,
+                    correctors=args.correctors, inv_factors=args.inv_factors,
+                    store_path=args.out, device=args.device,
+                    warm_starts=args.warm_starts, adaptive=args.adaptive,
+                    remedy=True if args.remedy else None,
+                )
+    finally:
+        if recorder is not None:
+            set_recorder(prev_recorder)
+        if tracer is not None:
+            tracer.close()
+            set_tracer(prev_tracer)
     return 0
 
 

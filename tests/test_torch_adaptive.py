@@ -412,9 +412,10 @@ def test_cli_refusals_match_jax(tmp_path):
             main(args)
     with pytest.raises(ValueError, match="adaptive"):
         TW.run_year_sweep(scenarios=1, batch=1, hours=48, remedy=True, device="cpu")
-    for opt in ("trace", "tracer", "cost"):
-        with pytest.raises(NotImplementedError, match=opt):
-            TW.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", **{opt: True})
+    # `trace=` and `tracer=` are taken now (tests/test_torch_journal.py); the
+    # JAX package's XLA cost records are not ported
+    with pytest.raises(NotImplementedError, match="cost"):
+        TW.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", cost=True)
 
 
 @pytest.mark.parametrize("opt", ["perf", "lanes", "lane_policy",

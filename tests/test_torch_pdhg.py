@@ -174,6 +174,20 @@ def test_pdhg_controls_off_two_periods_match_jax(family, design):
     assert float(got.res_primal) == pytest.approx(float(want.res_primal), rel=1e-9)
 
 
+def test_pdhg_linesearch_alone_matches_jax_before_rounding_grows(design):
+    """The Malitsky–Pock line search alone, three check periods of 10 on
+    the design LP: x and y within 1e-12 of JAX's (of max|x|, max|y|). The
+    formula is the JAX package's; only later do the accept tests amplify
+    last-bit rounding (week 5 at T = 168 on the CPU: 4.8e-16 of max|x|
+    after 10 iterations, 1.6e-11 after 100, 3.8e-2 after 200)."""
+    kw = dict(tol=1e-12, max_iter=30, check_every=10, linesearch=True)
+    want = jax.block_until_ready(j_pdhg(_jlp(design[1]), **kw))
+    got = TP.solve_lp_pdhg(_tlp(design[1]), **kw)
+    assert int(got.iterations) == int(want.iterations) == 30
+    assert _rel(want.x, got.x) <= 1e-12
+    assert _rel(want.y, got.y) <= 1e-12
+
+
 @pytest.mark.parametrize("family", ["random", "design"])
 def test_pdhg_controls_on_converged_match_jax(family, design):
     fields = _mk_sparse(6) if family == "random" else design[1]

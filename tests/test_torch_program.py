@@ -86,3 +86,74 @@ def test_batched_params_and_eval_expr():
             np.asarray(jprog.extract("battery.soc", jnp.asarray(x[i]))),
             rtol=0, atol=0,
         )
+
+
+def _sequential_scatter_add(a, idx, vals):
+    """The scatter-add before its sum order was fixed: one
+    ``index_put_(accumulate=True)``, which on the CPU adds the entries in
+    order (a sequential sum per index)."""
+    idx = torch.as_tensor(np.asarray(idx, np.int64))
+    if idx.numel() == 0:
+        return a
+    lead, n = a.shape[:-1], a.shape[-1]
+    nb = int(np.prod(lead)) if lead else 1
+    vals = torch.broadcast_to(vals, (*lead, idx.numel())).reshape(-1)
+    flat = (torch.arange(nb)[:, None] * n + idx[None, :]).reshape(-1)
+    a.reshape(-1).index_put_((flat,), vals, accumulate=True)
+    return a
+
+
+def _scatter_site(site, scatter):
+    """(result tensors, gradient) of one scatter-add site, computed with
+    `scatter` in place of the port's `_scatter_add`."""
+    from dispatches_tpu_torch.core import program
+    from dispatches_tpu_torch.solvers import structured
+
+    saved = program._scatter_add
+    program._scatter_add = structured._scatter_add = scatter
+    try:
+        rng = np.random.default_rng(7)
+        if site == "scatter":
+            # repeats and singletons mixed, magnitudes over 16 decades, onto
+            # a nonzero batched base
+            idx = rng.integers(0, 40, 500)
+            base = torch.as_tensor(rng.normal(size=(3, 50)), dtype=torch.float64)
+            vals = torch.as_tensor(rng.normal(size=(3, 500)) * 10.0 ** rng.uniform(-8, 8, 500))
+            vals.requires_grad_(True)
+            out = program._scatter_add(base.clone(), idx, vals)
+            grad = torch.autograd.grad((out * torch.arange(50.0)).sum(), vals)[0]
+            return [out.detach()], grad
+        _, tprog, p = _both(48)
+        lmp = torch.as_tensor(rng.uniform(0.5, 2.0, (3, 1)) * p["lmp"][None, :])
+        lmp.requires_grad_(True)
+        params = {"lmp": lmp, "wind_cf": p["wind_cf"]}
+        if site == "instantiate":
+            meta = structured.extract_time_structure(tprog, 48, block_hours=24)
+            dense = tprog.instantiate(params, device="cpu")
+            banded = meta.instantiate(params, device="cpu")
+            grad = torch.autograd.grad(dense.c.sum() + banded.c.sum(), lmp)[0]
+            return [f.detach() for f in (*dense, *banded)], grad
+        x = torch.as_tensor(rng.normal(size=(3, tprog.N)))
+        npv = tprog.eval_expr("NPV", x, params)
+        return [npv.detach()], torch.autograd.grad(npv.sum(), lmp)[0]
+    finally:
+        program._scatter_add = structured._scatter_add = saved
+
+
+@pytest.mark.parametrize("site", ["scatter", "instantiate", "eval_expr"])
+def test_fixed_order_scatter_add_is_the_sequential_cpu_sum(site):
+    """The fixed-order `_scatter_add` (repeated indices folded on the host
+    in entry order, so a card gives the CPU's bits) equals the sequential
+    CPU scatter it replaced, bit for bit, and so do its gradients: on a
+    raw scatter, the dense and banded `instantiate`, and
+    ``eval_expr("NPV")``, all over a batch of 3."""
+    from dispatches_tpu_torch.core.program import _scatter_add
+
+    want, want_g = _scatter_site(site, _sequential_scatter_add)
+    got, got_g = _scatter_site(site, _scatter_add)
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.nan_to_num(posinf=0.0), b.nan_to_num(posinf=0.0))
+        assert torch.equal(a.isinf(), b.isinf())
+    assert torch.equal(want_g, got_g)

@@ -29,8 +29,8 @@ def test_year_sweep_matches_jax():
         assert g["iterations"] == w["iterations"]
         assert g["NPV"] == pytest.approx(w["NPV"], rel=1e-3)
         assert g["batch_seconds"] > 0
-    with pytest.raises(NotImplementedError, match="tracer"):
-        T.run_year_sweep(scenarios=1, batch=1, hours=96, tracer=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="cost"):
+        T.run_year_sweep(scenarios=1, batch=1, hours=96, cost=True, device="cpu")
 
 
 def test_year_sweep_default_meets_highs():
@@ -81,7 +81,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         p for p in (ROOT / "dispatches_tpu_torch").rglob("*.py")
         if "_build" not in p.parts  # kernel build outputs, git-ignored
     )
-    sources.append(ROOT / "chip_smoke.py")
+    sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_replay_solve.py"]
     assert len(sources) > 10
     bad = re.compile(
         r"^\s*(?:import|from)\s+jax\b"  # jax itself

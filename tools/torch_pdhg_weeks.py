@@ -12,6 +12,12 @@ KKT certificates (res_primal, res_dual, comp, gap) against the default
 hundred iterations (the line search's accept tests compare nearly equal
 numbers), so the point of comparison is the converged answer and its
 certificates, not the iterates.
+
+``--ulp N`` moves the largest cost entry (in magnitude) by N units in the
+last place in both packages' LP before solving: how far one rounding step
+moves each package's iteration count, convergence and certificates.
+
+    env JAX_PLATFORMS=cpu python tools/torch_pdhg_weeks.py --weeks 22 --ulp 1
 """
 import argparse
 import time
@@ -23,6 +29,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--weeks", type=int, nargs="+", default=[0, 5])
     ap.add_argument("--threads", type=int, default=4, help="torch intra-op threads")
+    ap.add_argument("--ulp", type=int, default=0,
+                    help="move the largest cost entry by this many ulps in both LPs")
     args = ap.parse_args(argv)
 
     import jax
@@ -56,10 +64,16 @@ def main(argv=None):
         params = {"lmp": data["da_lmp"].reshape(52, T)[w],
                   "wind_cf": data["da_wind_cf"].reshape(52, T)[w]}
         jlp = jprog.instantiate_coo(params)
+        j = int(np.argmax(np.abs(np.asarray(jlp.c))))
+        cj = np.asarray(jlp.c)[j]
+        for _ in range(abs(args.ulp)):
+            cj = np.nextafter(cj, np.inf if args.ulp > 0 else -np.inf)
+        jlp = jlp._replace(c=jlp.c.at[j].set(cj))
         t0 = time.perf_counter()
         js = jax.block_until_ready(j_pdhg(jlp, **kw))
         j_s = time.perf_counter() - t0
         tlp = tprog.instantiate_coo(params, device="cpu")
+        tlp.c[j] = float(cj)
         t0 = time.perf_counter()
         ts = solve_lp_pdhg(tlp, **kw)
         t_s = time.perf_counter() - t0
@@ -68,7 +82,8 @@ def main(argv=None):
             ("port", ts, kkt_certificates(tlp, ts), t_s),
         ):
             cert = np.asarray(cert)
-            print(f"week {w} {name}: {int(sol.iterations)} iterations, converged "
+            print(f"week {w}{f' (c[{j}] {args.ulp:+d} ulp)' if args.ulp else ''} {name}: "
+                  f"{int(sol.iterations)} iterations, converged "
                   f"{bool(sol.converged)}, obj {float(sol.obj):.10e}, certificates "
                   + " ".join(f"{v:.2e}" for v in cert)
                   + f" ({'within' if np.all(cert <= 1e-4) else 'outside'} the default "

@@ -8,6 +8,19 @@ parallel worker processes while the card solves). Prints one line per lane
 and setting, and writes everything to ``--out`` as JSON.
 
     python3 tools/torch_year_accuracy.py --out year_accuracy.json
+
+Per lane it also prints the solve's duality gap in the NPV's units (the
+sum of zl (x - l) + zu (u - x) over the finite bounds, x 1e5) against
+|NPV| and against the gross objective (sum of |c_i x_i| plus |c0|, x 1e5:
+the magnitude of the terms whose cancellation leaves the NPV), and the
+dual objective (primal minus that gap) against HiGHS. The ``runner_tol*``
+settings are the runner's tier at another stopping tolerance.
+``--scatter-order device`` builds the LP with the device's own
+``index_put_(accumulate=True)`` order for repeated indices, as the port
+did before that order was fixed, so the trajectory of that LP can be set
+beside the fixed-order one's.
+
+    python3 tools/torch_year_accuracy.py --configs runner,runner_tol1e-9 --trace
 """
 import argparse
 import json
@@ -53,6 +66,22 @@ def highs_npv(scale):
     return npv, time.perf_counter() - t0
 
 
+def _device_scatter_add(a, idx, vals):
+    """``a[..., idx] += vals`` in one ``index_put_(accumulate=True)`` on `a`'s
+    device: repeated indices summed in the device's own order."""
+    import torch
+
+    idx = torch.as_tensor(np.asarray(idx, np.int64), device=a.device)
+    if idx.numel() == 0:
+        return a
+    lead, n = a.shape[:-1], a.shape[-1]
+    nb = int(np.prod(lead)) if lead else 1
+    vals = torch.broadcast_to(vals, (*lead, idx.numel())).reshape(-1)
+    flat = (torch.arange(nb, device=a.device)[:, None] * n + idx[None, :]).reshape(-1)
+    a.reshape(-1).index_put_((flat,), vals, accumulate=True)
+    return a
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scenarios", type=int, default=8)
@@ -64,6 +93,9 @@ def main():
                     help="reuse the HiGHS NPVs of an earlier --out file with the same scales")
     ap.add_argument("--trace", action="store_true",
                     help="record and print each lane's last IPM iterations")
+    ap.add_argument("--scatter-order", choices=("fixed", "device"), default="fixed",
+                    help="repeated indices summed in entry order (the port's) or in "
+                         "the device's own order (before that order was fixed)")
     args = ap.parse_args()
 
     import torch
@@ -96,7 +128,15 @@ def main():
     lmp, cf = _inputs()
     lmps = torch.as_tensor(scales[:, None] * lmp[None, :], device="cuda")
     params = {"lmp": lmps, "wind_cf": torch.as_tensor(cf, device="cuda")}
+    if args.scatter_order == "device":
+        from dispatches_tpu_torch.core import program
+        from dispatches_tpu_torch.solvers import structured
+
+        program._scatter_add = structured._scatter_add = _device_scatter_add
     blp = meta.instantiate(params, device="cuda")
+    coo = prog.instantiate_coo(params, device="cuda")
+    lb = torch.as_tensor(prog.lb, device="cuda")
+    ub = torch.as_tensor(prog.ub, device="cuda")
     base = year_sweep_solver_kw(torch.float64, Tb=meta.Tb)  # the runner's default tier
     configs = {
         # the JAX package's tier (f32 factorization, tol 1e-6, one chain)
@@ -109,8 +149,10 @@ def main():
         "runner": {},  # run_year_sweep's default tier as it is
         "runner_noslabs": {"slabs": None},
         "runner_slabs73": {"slabs": 73},
+        **{f"runner_tol{t}": {"tol": float(t)} for t in ("1e-6", "1e-7", "1e-9", "1e-10")},
     }
-    results = {"card": torch.cuda.get_device_name(0), "scales": scales.tolist(), "runs": {}}
+    results = {"card": torch.cuda.get_device_name(0), "scales": scales.tolist(),
+               "scatter_order": args.scatter_order, "runs": {}}
     sols = {}
     for name in args.configs.split(","):
         kw = {**base, **configs[name]}
@@ -124,7 +166,13 @@ def main():
             sol, tr = sol
         wall = time.perf_counter() - t0
         npv = prog.eval_expr("NPV", sol.x, params).cpu().numpy()
+        comp = (torch.where(torch.isfinite(lb), sol.zl * (sol.x - lb), 0.0)
+                + torch.where(torch.isfinite(ub), sol.zu * (ub - sol.x), 0.0)).sum(-1)
+        gross = (coo.c * sol.x).abs().sum(-1) + coo.c0.abs()
         sols[name] = dict(
+            duality_gap=(1e5 * comp).cpu().tolist(),
+            gross_objective=(1e5 * gross).cpu().tolist(),
+            dual_npv=(npv - prog.obj_sense * 1e5 * comp.cpu().numpy()).tolist(),
             wall_s=wall, launches=chain_sweep.launches,
             options={k: str(v) for k, v in kw.items()},
             npv=npv.tolist(),
@@ -155,7 +203,16 @@ def main():
         rec["rel_vs_highs"] = [
             abs(a - h) / abs(h) for a, h in zip(rec["npv"], results["highs_npv"])
         ]
+        rec["dual_rel_vs_highs"] = [
+            abs(a - h) / abs(h) for a, h in zip(rec["dual_npv"], results["highs_npv"])
+        ]
         results["runs"][name] = rec
+        for i in range(len(scales)):
+            g, n = rec["duality_gap"][i], abs(rec["npv"][i])
+            print(f"[{name}] lane {i} duality gap {g:.6e} $: / |NPV| {g / n:.3e}, / gross "
+                  f"{g / rec['gross_objective'][i]:.3e} (gross / |NPV| "
+                  f"{rec['gross_objective'][i] / n:.1f}); dual NPV vs HiGHS rel "
+                  f"{rec['dual_rel_vs_highs'][i]:.1e}", flush=True)
         for i in range(len(scales)):
             print(f"[{name}] lane {i} scale {scales[i]:.3f}: it {rec['iterations'][i]} "
                   f"conv {rec['converged'][i]} st {rec['status'][i]} "
