@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phases kernel  # build + kernel checks only
     python3 chip_smoke.py --phases pdhg    # the PDHG lane alone
+    python3 chip_smoke.py --phases serve   # the serving tier alone
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
@@ -141,6 +142,45 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   A x / Aᵀ y against their HBM bound.
               The phase's gates are raised at its end, after every
               number has printed.
+  9. serve    the serving tier on the card, over the 52 weekly design LPs
+              of rts303 (T = 168, f64, the dense `instantiate` of pdhg (s),
+              1,681 x 2,355 a lane, tol 1e-8, max_iter 60), each week's
+              reference its lane of a one-shot `solve_lp_batch` of its
+              group of 8 (the last group padded by its own weeks):
+              (a) burst: the 52 submitted at once to
+                  `make_dense_service(bucket=8, chunk_iters=8)`, drained:
+                  every ticket resolves, every lane converges, every row
+                  bitwise its reference; printed: wall, LPs/s, chunks,
+                  refills, the one-shot batch of 52's wall;
+              (b) open loop: 104 Poisson arrivals (`tools/torch_loadgen.py`
+                  `arrival_schedule`, seed 0) over the weeks
+                  (`problem_seeds`, dup 0.25, seed mod 52) at 0.5 x (a)'s
+                  rate, cache on: zero lost, every solve converged, every
+                  answer (cache hits included) bitwise its week's
+                  reference; latency p50/p95/p99, goodput, cache hits,
+                  then the serial baseline on the same schedule;
+              (c) deadline: the slowest week with a timeout of half a
+                  chunk resolves `deadline_exceeded` with a finite best
+                  iterate;
+              (d) fleet: `make_dense_fleet(2, 8, telemetry=True)`, both
+                  children on cuda:0: the 52 weeks bitwise (a)'s; a second
+                  pass over weeks 0-25 with shard 0 sent `fault exit` after
+                  13 submissions: zero lost, a respawn, requeued lanes
+                  bitwise too; spawn to
+                  first pong and to first result, the slowest ping, the
+                  kill-to-first-result wall; the parent's
+                  serve_requests_total equal to the sum of its per-shard
+                  series and the merged child counters to their fleet
+                  aggregate; /metrics and /healthz scraped once from a
+                  `TelemetryExporter` on 127.0.0.1 at an ephemeral port;
+              (e) a `torch.profiler` window of 3 chunks at bucket 8 in steady
+                  state: device-busy share, launches and device-to-host
+                  scalar reads a chunk, device time by op; then the host
+                  time by phase (row copy, cold dispatch + scatter, resume,
+                  harvest) over 3 more chunks.
+              chain_sweep launches on this path are read (0: the dense
+              IPM takes no banded sweep). The gates are raised at the
+              phase's end, after every number has printed.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -1694,11 +1734,440 @@ def phase_pdhg(year_records=None):
     return dict(scatter_order=order, weekly=weekly, year=year, remedy=rem)
 
 
+# ---------------------------------------------------------------------------
+# serve: the serving tier on the card
+
+SERVE_BUCKET, SERVE_CHUNK = 8, 8
+SERVE_KW = dict(tol=1e-8, max_iter=60)  # the weekly dense IPM batch's options (pdhg (b))
+SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 104, 0.25, 0.5  # (b): requests, repeats, x (a)'s rate
+SERVE_PROFILE_CHUNKS = 3
+SERVE_DEVICE = "cuda"
+_SERVE_FAILS = []
+
+
+def _serve_fail(msg):
+    """A failed gate of the serve phase: logged now, raised at its end."""
+    log(f"[serve] GATE FAILED: {msg}")
+    _SERVE_FAILS.append(msg)
+
+
+def _np_same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _row_diff(row, ref):
+    """Names of the solution fields where `row` is not bitwise `ref`."""
+    return [n for n, a, b in zip(ref._fields, row, ref) if not _np_same(a, b)]
+
+
+def _serve_rows(hours=168):
+    """The 52 weekly design LPs of rts303 (T = 168, f64), built by the dense
+    `instantiate` on the card from the weekly parameters of pdhg (s), as
+    host rows: a request arrives from outside the card."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
+        HybridDesign, build_pricetaker,
+    )
+    from dispatches_tpu_torch.core.program import LPData
+
+    prog = build_pricetaker(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None))[0]
+    data = P.load_rts303()
+    p_week = {k: data[k][:52 * hours].reshape(52, hours) for k in ("da_lmp", "da_wind_cf")}
+    p_week = {"lmp": p_week["da_lmp"], "wind_cf": p_week["da_wind_cf"]}
+    lp = prog.instantiate({k: torch.as_tensor(v, device=SERVE_DEVICE) for k, v in p_week.items()},
+                          device=SERVE_DEVICE)
+    from dispatches_tpu_torch.solvers.ipm import _LP_NDIM
+
+    host = {n: f.cpu().numpy() for n, f in zip(LPData._fields, lp)}
+    # bounds come unbatched (one l and u for every week)
+    return [LPData(*(np.asarray(f[w] if f.ndim > _LP_NDIM[n] else f) for n, f in host.items()))
+            for w in range(52)]
+
+
+def _stack_rows(rows):
+    from dispatches_tpu_torch.core.program import LPData
+
+    return LPData(*(torch.as_tensor(np.stack([r[i] for r in rows]), device=SERVE_DEVICE)
+                    for i in range(len(LPData._fields))))
+
+
+def _serve_reference(rows):
+    """Each week solved in a one-shot `solve_lp_batch` of its group of 8 (in
+    submission order, the last group padded by its own weeks), and the
+    one-shot batch of all 52 weeks' wall."""
+    from dispatches_tpu_torch.solvers.ipm import IPMSolution, solve_lp_batch
+
+    ref = {}
+    for g in range(0, len(rows), SERVE_BUCKET):
+        weeks = list(range(g, min(g + SERVE_BUCKET, len(rows))))
+        pad = (weeks * SERVE_BUCKET)[:SERVE_BUCKET]
+        sol = solve_lp_batch(_stack_rows([rows[w] for w in pad]), **SERVE_KW)
+        host = [f.cpu().numpy() for f in sol]
+        for j, w in enumerate(weeks):
+            ref[w] = IPMSolution(*(np.asarray(h[j]) for h in host))
+    full = _stack_rows(rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = solve_lp_batch(full, **SERVE_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    its = [int(ref[w].iterations) for w in range(len(rows))]
+    log(f"[serve] 52 weekly LPs ({rows[0].A.shape[0]} x {rows[0].A.shape[1]} each, f64, "
+        f"tol {SERVE_KW['tol']}, max_iter {SERVE_KW['max_iter']}): one-shot solve_lp_batch "
+        f"of 52 in {wall:.3f} s ({len(rows) / wall:.2f} LPs/s), iterations "
+        f"{int(one.iterations.max())} at most; in groups of {SERVE_BUCKET}: iterations "
+        f"{min(its)}..{max(its)}, largest {max(its)}")
+    return ref, dict(oneshot_wall_s=wall, oneshot_lps=len(rows) / wall, max_iterations=max(its),
+                     iterations=its)
+
+
+def _serve_burst(rows, ref):
+    """(a): the 52 weeks submitted at once to the in-process service."""
+    from dispatches_tpu_torch.core.program import lp_fingerprint
+    from dispatches_tpu_torch.serve import make_dense_service
+
+    svc = make_dense_service(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, device=SERVE_DEVICE,
+                             **SERVE_KW)
+    t0 = time.perf_counter()
+    tickets = [svc.submit(rows[w], request_id=f"w{w}") for w in range(len(rows))]
+    t_sub = time.perf_counter() - t0
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for r in rows[:8]:
+        lp_fingerprint(r)
+    fp_s = (time.perf_counter() - t1) / 8
+    lost = [w for w, t in enumerate(tickets) if not t.done()]
+    res = {w: t.result(0) for w, t in enumerate(tickets) if t.done()}
+    unconv = [w for w, r in res.items() if r.solution is None or not bool(r.solution.converged)]
+    diff = {w: _row_diff(r.solution, ref[w]) for w, r in res.items() if r.solution is not None}
+    diff = {w: d for w, d in diff.items() if d}
+    st = svc.stats()
+    lps = len(rows) / wall
+    log(f"[serve] (a) burst of 52 through make_dense_service(bucket={SERVE_BUCKET}, "
+        f"chunk_iters={SERVE_CHUNK}): {wall:.3f} s ({lps:.2f} LPs/s; submit {t_sub:.3f} s of it, "
+        f"a row's fingerprint {fp_s * 1e3:.1f} ms), {st['chunks']} chunks, "
+        f"{st['refills']} refills, {wall / st['chunks'] * 1e3:.1f} ms a chunk; "
+        f"lost {len(lost)}, unconverged {unconv}, bitwise-different {len(diff)}")
+    if lost or unconv:
+        _serve_fail(f"(a) lost {lost}, unconverged {unconv}")
+    if diff:
+        w = sorted(diff)[0]
+        _serve_fail(f"(a) {len(diff)} weeks not bitwise the one-shot batch of 8 (week {w}: "
+                    f"{diff[w]}; x ulps "
+                    f"{_ulps(torch.as_tensor(res[w].solution.x), torch.as_tensor(ref[w].x))})")
+    return dict(wall_s=wall, lps=lps, submit_s=t_sub, fingerprint_s=fp_s,
+                chunks=st["chunks"], refills=st["refills"], chunk_s=wall / st["chunks"],
+                bitwise=not diff, lost=len(lost))
+
+
+def _serve_open_loop(rows, ref, lps):
+    """(b): Poisson arrivals at SERVE_LOAD x (a)'s rate through the service
+    (cache on), then the serial baseline on the same schedule."""
+    from dispatches_tpu_torch.serve import make_dense_service
+    from tools.torch_loadgen import (
+        arrival_schedule, open_loop, percentiles, problem_seeds, serial_loop, serial_solver,
+    )
+
+    rate = SERVE_LOAD * lps
+    weeks = [s % len(rows) for s in problem_seeds(SERVE_REQUESTS, SERVE_DUP, 0)]
+    sched = arrival_schedule(SERVE_REQUESTS, rate, 0)
+    svc = make_dense_service(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, device=SERVE_DEVICE,
+                             **SERVE_KW)
+    svc.start()
+    try:
+        results, wall, _ = open_loop(svc, [rows[w] for w in weeks], sched)
+    finally:
+        svc.stop()
+    lost = sum(r is None for r in results)
+    done = [(w, r) for w, r in zip(weeks, results) if r is not None]
+    hits = [(w, r) for w, r in done if r.from_cache]
+    unconv = [w for w, r in done if not r.from_cache
+              and (r.solution is None or not bool(r.solution.converged))]
+    diff = [w for w, r in done if r.solution is not None and _row_diff(r.solution, ref[w])]
+    pct = percentiles([r.latency for _, r in done])
+    good = sum(r.ok for _, r in done) / wall
+    repeats = SERVE_REQUESTS - len(set(weeks))
+    log(f"[serve] (b) open loop: {SERVE_REQUESTS} requests over the 52 weeks "
+        f"(problem_seeds dup {SERVE_DUP}, {repeats} repeats of a week), Poisson at "
+        f"{rate:.2f}/s ({SERVE_LOAD} x (a)): latency p50 {pct['p50_s']:.3f} s p95 "
+        f"{pct['p95_s']:.3f} s p99 {pct['p99_s']:.3f} s, goodput {good:.2f}/s, wall "
+        f"{wall:.2f} s, cache hits {len(hits)}; lost {lost}, unconverged {unconv}, "
+        f"not bitwise the week's one-shot row {len(diff)}")
+    lat, ok, swall = serial_loop(serial_solver(SERVE_DEVICE, **SERVE_KW), [rows[w] for w in weeks],
+                                 sched)
+    spct = percentiles(lat)
+    log(f"[serve] (b) serial baseline (one unbatched solve_lp at a time, no cache) on the same "
+        f"schedule: p50 {spct['p50_s']:.3f} s p95 {spct['p95_s']:.3f} s p99 "
+        f"{spct['p99_s']:.3f} s, goodput {ok / swall:.2f}/s, wall {swall:.2f} s, "
+        f"{ok} converged")
+    if lost or unconv:
+        _serve_fail(f"(b) lost {lost}, unconverged {unconv}")
+    if diff:
+        _serve_fail(f"(b) {len(diff)} answers (cache hits included) not bitwise their week's "
+                    f"first solve (weeks {sorted(set(diff))[:8]})")
+    return dict(rate=rate, wall_s=wall, goodput=good, cache_hits=len(hits), repeats=repeats,
+                **pct, serial={**spct, "goodput": ok / swall, "wall_s": swall, "converged": ok})
+
+
+def _serve_deadline(rows, ref, chunk_s):
+    """(c): the slowest week with a timeout half a chunk long."""
+    from dispatches_tpu_torch.serve import make_dense_service
+
+    w = max(ref, key=lambda k: int(ref[k].iterations))
+    svc = make_dense_service(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, cache_size=None,
+                             device=SERVE_DEVICE, **SERVE_KW)
+    timeout = 0.5 * chunk_s
+    t = svc.submit(rows[w], timeout=timeout, request_id="late")
+    svc.drain()
+    res = t.result(0)
+    sol = res.solution
+    finite = sol is not None and bool(np.isfinite(np.asarray(sol.x)).all())
+    its = None if sol is None else int(sol.iterations)
+    log(f"[serve] (c) week {w} ({int(ref[w].iterations)} iterations) with a {timeout * 1e3:.1f} ms "
+        f"timeout: {res.verdict} after {res.latency * 1e3:.1f} ms, best iterate at iteration "
+        f"{its}, finite {finite}")
+    if res.verdict != "deadline_exceeded" or not finite:
+        _serve_fail(f"(c) verdict {res.verdict}, finite best iterate {finite}")
+    return dict(week=w, timeout_s=timeout, verdict=res.verdict, iterations=its, finite=finite)
+
+
+def _fleet_pass(fleet, rows, kill_at=None):
+    """Submit the weeks to the fleet (in order) and drain; with `kill_at`,
+    send shard 0 an ``exit`` fault once that many are submitted and shard
+    0 holds lanes. Returns the results, the wall and the kill's stamp."""
+    tickets, kill_t = [], None
+    t0 = time.perf_counter()
+    for w in range(len(rows)):
+        if kill_at is not None and w == kill_at:
+            t1 = time.monotonic()
+            while fleet.shard_states()[0]["inflight"] == 0 and time.monotonic() - t1 < 120:
+                fleet.pump()
+            fleet.inject_fault(0, "exit")
+            kill_t = time.monotonic()
+        tickets.append(fleet.submit(rows[w], request_id=f"f{w}"))
+    fleet.drain(timeout=240.0)
+    wall = time.perf_counter() - t0
+    return [t.result(0) if t.done() else None for t in tickets], wall, kill_t
+
+
+def _serve_fleet(rows, ref):
+    """(d): a 2-shard fleet on the one card, bitwise against (a); a second
+    pass with shard 0 killed halfway through the submissions."""
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
+    from dispatches_tpu_torch.obs.exporter import TelemetryExporter
+    from dispatches_tpu_torch.serve import make_dense_fleet
+    from tools.torch_loadgen import http_get, shard_counter_deltas
+
+    before = obs_metrics.snapshot()["counters"]
+    fleet = make_dense_fleet(2, SERVE_BUCKET, chunk_iters=SERVE_CHUNK, telemetry=True,
+                             cache_size=None, solver_kw=dict(SERVE_KW), device=SERVE_DEVICE)
+    exporter = TelemetryExporter(0, health_fn=fleet.health).start()
+    out = {}
+    try:
+        shards = [s.shard for s in fleet._slots]
+        log(f"[serve] (d) fleet of 2 shards, child devices "
+            f"{[s.device_env for s in shards]}, heartbeat_timeout {fleet.heartbeat_timeout} s")
+        res1, wall1, _ = _fleet_pass(fleet, rows)
+        start = [dict(pong_s=s.first_pong_at - s.spawned_at,
+                      result_s=s.first_result_at - s.spawned_at, ping_max_s=s.ping_max)
+                 for s in shards]
+        lost1 = sum(r is None for r in res1)
+        diff1 = [w for w, r in enumerate(res1)
+                 if r is not None and (r.solution is None or _row_diff(r.solution, ref[w]))]
+        log(f"[serve] (d) pass 1: 52 weeks in {wall1:.2f} s ({52 / wall1:.2f} LPs/s), lost "
+            f"{lost1}, not bitwise (a) {len(diff1)}; spawn to first pong / first result / "
+            f"slowest ping: " + ", ".join(
+                f"shard {i} {d['pong_s']:.3f} / {d['result_s']:.3f} / {d['ping_max_s']:.3f} s"
+                for i, d in enumerate(start)))
+        half = rows[:len(rows) // 2]  # weeks 0-25, shard 0 killed after 13
+        res2, wall2, kill_t = _fleet_pass(fleet, half, kill_at=len(half) // 2)
+        s0 = shards[0]
+        recovery = (s0.first_result_at - kill_t) if s0.first_result_at else None
+        st = fleet.stats()
+        lost2 = sum(r is None for r in res2)
+        diff2 = [w for w, r in enumerate(res2)
+                 if r is not None and (r.solution is None or _row_diff(r.solution, ref[w]))]
+        log(f"[serve] (d) pass 2, shard 0 sent `fault exit` after {len(half) // 2} "
+            f"submissions: {len(half)} weeks in {wall2:.2f} s, lost {lost2}, respawns "
+            f"{st['respawns']}, requeued lanes {st['requeued_lanes']}, not bitwise (a) "
+            f"{len(diff2)}; kill to the respawned "
+            f"shard's first result {recovery if recovery is None else round(recovery, 3)} s "
+            f"(its spawn to first pong {s0.first_pong_at - s0.spawned_at:.3f} s, slowest ping "
+            f"{s0.ping_max:.3f} s)")
+        # telemetry: children ship on the heartbeat; pump until it settles
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 20:
+            fleet.pump()
+            labeled, unlabeled = shard_counter_deltas(before, obs_metrics.snapshot()["counters"])
+            if labeled and all(abs(sum(m.values()) - unlabeled.get(k, 0.0)) < 1e-9
+                               for k, m in labeled.items()) and fleet.health()["ok"]:
+                break
+            time.sleep(0.05)
+        after = obs_metrics.snapshot()["counters"]
+        ok_total = after.get('serve_requests_total{status="ok"}', 0.0) - before.get(
+            'serve_requests_total{status="ok"}', 0.0)
+        per_shard = {s: after[s] - before.get(s, 0.0) for s in after
+                     if s.startswith("serve_shard_requests_total{")}
+        conserved = all(abs(sum(m.values()) - unlabeled.get(k, 0.0)) < 1e-9
+                        for k, m in labeled.items())
+        code_m, body = http_get(exporter.url("/metrics"))
+        code_h, health = http_get(exporter.url("/healthz"))
+        log(f"[serve] (d) serve_requests_total{{status=ok}} {ok_total:g} against the per-shard "
+            f"series {per_shard} (sum {sum(per_shard.values()):g}); merged child counters "
+            f"{ {k[0]: m for k, m in labeled.items()} } against the fleet aggregate "
+            f"{ {k[0]: v for k, v in unlabeled.items()} }; exporter /metrics {code_m} "
+            f"({len(body)} bytes), /healthz {code_h} {json.loads(health).get('ok')}")
+        if lost1 or lost2 or diff1 or diff2:
+            _serve_fail(f"(d) lost {lost1} + {lost2}, not bitwise (a) {diff1} / {diff2}")
+        if st["respawns"] < 1 or st["requeued_lanes"] < 1:
+            _serve_fail(f"(d) respawns {st['respawns']}, requeued {st['requeued_lanes']}")
+        if ok_total != sum(per_shard.values()) or not labeled or not conserved:
+            _serve_fail("(d) the fleet aggregate is not the sum of the per-shard series")
+        if code_m != 200 or 'shard="0"' not in body or 'shard="1"' not in body or code_h != 200:
+            _serve_fail(f"(d) exporter /metrics {code_m}, /healthz {code_h}")
+        out = dict(pass1_wall_s=wall1, pass2_wall_s=wall2, startup=start,
+                   respawn_pong_s=s0.first_pong_at - s0.spawned_at, recovery_s=recovery,
+                   respawns=st["respawns"], requeued=st["requeued_lanes"],
+                   requests_ok=ok_total, per_shard=per_shard)
+    finally:
+        exporter.stop()
+        fleet.close()
+    return out
+
+
+class _PhaseClock:
+    """`SlotEngine.observer` that times a chunk's phases on the host,
+    synchronizing the card at each boundary: the admitted rows' copy, the
+    cold dispatch and its scatter, the resume (with the chunk's one host
+    read), and the harvest's copy of the solution."""
+
+    def __init__(self, engine):
+        self.t = {"rows": 0.0, "cold": 0.0, "resume": 0.0, "harvest": 0.0}
+        self._mark = 0.0
+        sync_rows = engine._sync_rows
+
+        def timed_rows():
+            t0 = time.perf_counter()
+            sync_rows()
+            torch.cuda.synchronize()
+            self.t["rows"] += time.perf_counter() - t0
+            self._mark = time.perf_counter()
+
+        engine._sync_rows = timed_rows
+
+    def _lap(self, key):
+        now = time.perf_counter()
+        self.t[key] += now - self._mark
+        self._mark = now
+
+    def chunk_begin(self, tokens):
+        torch.cuda.synchronize()
+        self._mark = time.perf_counter()
+
+    def cold_end(self, tokens, fresh):
+        torch.cuda.synchronize()
+        self._lap("cold")
+
+    def compute_end(self, tokens, it0, it1):
+        self._lap("resume")
+
+    def harvest_end(self, tokens):
+        self._lap("harvest")
+
+
+def _serve_profile(rows):
+    """(e): where a chunk's time goes, in steady state at bucket 8 (slots
+    refilled from the 52 weeks as lanes retire)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispatches_tpu_torch.runtime.adaptive import make_dense_engine
+
+    eng = make_dense_engine(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, device=SERVE_DEVICE,
+                            **SERVE_KW)
+    todo = list(range(len(rows)))
+
+    def chunk():
+        while todo and eng.free_slots():
+            w = todo.pop(0)
+            eng.admit(w, rows[w])
+        return eng.step()
+
+    for _ in range(3):  # steady state: past the first fill and its first harvest
+        chunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_CHUNKS):
+            chunk()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches, syncs, by_op = 0.0, 0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            dev_us += us
+            launches += e.count
+            by_op[e.key[:70]] = by_op.get(e.key[:70], 0.0) + us
+        elif e.key == "aten::_local_scalar_dense":
+            syncs += e.count
+    busy = dev_us / 1e6 / wall if wall else float("nan")
+    n = SERVE_PROFILE_CHUNKS
+    log(f"[serve] (e) profiled window of {n} chunks at bucket {SERVE_BUCKET}: wall {wall:.3f} s "
+        f"({wall / n * 1e3:.1f} ms a chunk), device busy {busy:.3f}, {launches / n:.0f} launches "
+        f"and {syncs / n:.1f} device-to-host scalar reads a chunk")
+    for name, us in sorted(by_op.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[serve] (e)   {us / 1e3:9.2f} ms  {name}")
+    if dev_us == 0:
+        log("[serve] (e) the profiler saw no device time: busy share not measured")
+    clock = _PhaseClock(eng)
+    eng.observer = clock
+    t0 = time.perf_counter()
+    for _ in range(n):
+        chunk()
+    wall_p = time.perf_counter() - t0
+    log(f"[serve] (e) host time by phase over {n} more chunks (the card synchronized at each "
+        f"boundary; {wall_p:.3f} s in all): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in clock.t.items()))
+    return dict(wall_s=wall, device_busy=busy, launches_per_chunk=launches / n,
+                scalar_reads_per_chunk=syncs / n,
+                phase_ms={k: v * 1e3 / n for k, v in clock.t.items()},
+                top_ops=sorted(by_op.items(), key=lambda kv: -kv[1])[:8])
+
+
+def phase_serve():
+    """The `serve` phase (see the module docstring), on the card."""
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+
+    t0 = time.perf_counter()
+    chain_sweep.launches = 0
+    rows = _serve_rows()
+    ref, one = _serve_reference(rows)
+    burst = _serve_burst(rows, ref)
+    loop = _serve_open_loop(rows, ref, burst["lps"])
+    late = _serve_deadline(rows, ref, burst["chunk_s"])
+    fleet = _serve_fleet(rows, ref)
+    prof = _serve_profile(rows)
+    launches = chain_sweep.launches
+    log(f"[serve] chain_sweep launches on the serving path: {launches} (dense IPM only); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if _SERVE_FAILS:
+        raise AssertionError(f"serve phase: {len(_SERVE_FAILS)} gates failed: {_SERVE_FAILS}")
+    return dict(reference=one, burst=burst, open_loop=loop, deadline=late, fleet=fleet,
+                profile=prof, launches=launches)
+
+
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
 PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
-                  "grad": 600, "adaptive": 900, "pdhg": 900}
+                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300}
 
 
 def _guarded(name, fn):
@@ -1712,9 +2181,9 @@ def _guarded(name, fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,weekly,golden,year,grad,adaptive,pdhg",
-                    help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg "
-                    "(device and build always run)")
+    ap.add_argument("--phases", default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve",
+                    help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
+                    "serve (device and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -1734,6 +2203,7 @@ def main(argv=None):
                 if "adaptive" in phases else {})
     if "pdhg" in phases:
         _guarded("pdhg", lambda: phase_pdhg(year.get("records")))
+    serve = _guarded("serve", phase_serve) if "serve" in phases else {}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -1746,7 +2216,8 @@ def main(argv=None):
                              "grad_year": grad.get("launches"),
                              "grad_bracket": grad.get("bracket_launches"),
                              "adaptive_year": adaptive.get("year", {}).get("launches"),
-                             "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches")},
+                             "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
+                             "serve": serve.get("launches")},
         # the adaptive year batch's launches by chain count (compaction)
         "adaptive_launches_by_chains": adaptive.get("year", {}).get("launches_by_chains"),
         "max_abs_err": max_err,

@@ -22,10 +22,13 @@ The records, their kinds and keys are the JAX package's (schema 8), so
 - ``retraces`` in ``span_end`` and ``retrace_totals`` in ``close`` are
   always ``{}``: they count jit retraces (`obs/retrace.py`), which eager
   PyTorch does not have.
-- The JAX package's manifest also carries a request-trace id from
-  `obs/reqtrace.py`, and its Tracer writes ``journey`` and
-  ``compile_event`` records; those come with the serving tier and the
-  performance observatory (ROADMAP A3, A7).
+- The JAX package's Tracer also writes ``compile_event`` records; those
+  come with the performance observatory (ROADMAP A7).
+
+A manifest carries ``trace_id`` / ``parent_span_id`` when the process was
+started with a traceparent in `obs.reqtrace.TRACEPARENT_ENV`, and the
+serving tier writes one ``journey`` record per request
+(`obs.reqtrace.Journey.finish`).
 
 Records are appended and flushed one at a time, so a killed run leaves a
 readable prefix. Library code calls `get_tracer()` and journals
@@ -120,6 +123,15 @@ def build_manifest(extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         "precision": _precision_env(),
     }
     m.update(_device_info())
+    # a parent process (callers of tools/torch_serve_dispatch.py) hands its
+    # trace identity down through the environment; recording it parents
+    # this whole journal onto the caller's span
+    from .reqtrace import TraceContext
+
+    ctx = TraceContext.from_environ()
+    if ctx is not None:
+        m["trace_id"] = ctx.trace_id
+        m["parent_span_id"] = ctx.span_id
     if extra:
         m.update(extra)
     return m
@@ -243,6 +255,11 @@ class Tracer:
             rec["health_error"] = f"{type(e).__name__}: {e}"
         self._emit(rec)
 
+    def journey(self, **fields: Any) -> None:
+        """Record a finished request journey (`obs.reqtrace`): trace ids,
+        terminal, phase durations, chunk segments; one per request."""
+        self._emit({"kind": "journey", "ts": time.time(), **fields})
+
     def close(self) -> None:
         """Emit a final record with the metrics-registry snapshot, then
         close the file. Idempotent."""
@@ -284,6 +301,9 @@ class NullTracer:
         pass
 
     def solve_event(self, name: str, sol: Any, trace: Any = None, **attrs: Any) -> None:
+        pass
+
+    def journey(self, **fields: Any) -> None:
         pass
 
     def close(self) -> None:

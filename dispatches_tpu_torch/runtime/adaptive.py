@@ -42,16 +42,23 @@ conditions (`obs.conformance`) into ``stats["conformance"]`` and the
 ``solve_residual_*`` histograms; it only reads the results, which stay
 bitwise those of the same call without it.
 
+**Continuous batching** (`SlotEngine`, `make_dense_engine`): the serving
+tier's engine keeps the bucket fixed and back-fills the slots of retired
+lanes with new problems between chunks, instead of compacting. A lane it
+harvests is bitwise the same lane in a one-shot `solve_lp_batch` of
+`bucket` lanes on the same device (`SlotEngine`).
+
 The JAX package's `perf`, `lanes`, `lane_policy`, `lane_model` and
-`warm_predictor` options and its serving-tier `SlotEngine` are not
-ported yet; the options raise NotImplementedError.
-Its persistent compile cache and compile-hit accounting manage XLA's
+`warm_predictor` options are not ported yet; they raise
+NotImplementedError, naming the ROADMAP item that brings them. Its
+persistent compile cache and compile-hit accounting manage XLA's
 executables and have no counterpart in eager PyTorch.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..obs import metrics as obs_metrics
@@ -84,6 +91,12 @@ def next_bucket(n: int, ladder: list) -> int:
         if b >= n:
             return b
     return ladder[-1]
+
+
+def _opt_key(solver_kw: dict):
+    """Hashable summary of the solver options (part of the serving tier's
+    result-cache key, as in the JAX package)."""
+    return tuple(sorted((k, str(v)) for k, v in solver_kw.items()))
 
 
 def _batch_axes(fields_cls, base_ndim, data):
@@ -332,7 +345,7 @@ def solve_lp_adaptive(
     `warm_predictor`, `perf`, `lanes`, `lane_policy` and `lane_model` are
     not ported yet and raise NotImplementedError."""
     from ..core.program import LPData
-    from ..solvers.ipm import _LP_NDIM, IPMSolution, solve_lp, solve_lp_partial
+    from ..solvers.ipm import _LP_NDIM, IPMSolution, solve_lp
 
     _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
                      lane_policy=lane_policy, lane_model=lane_model)
@@ -354,12 +367,7 @@ def solve_lp_adaptive(
                            stats=stats)
         return (sol0, tr0) if trace else sol0
 
-    def seg_cold(d, w, stop):
-        return solve_lp_partial(d, warm_start=w, it_stop=stop, trace=trace, **solver_kw)
-
-    def seg_resume(d, s, stop):
-        return solve_lp_partial(d, state=s, it_stop=stop, trace=trace, **solver_kw)
-
+    seg_cold, seg_resume = dense_segments(trace, solver_kw)
     out, tr = _adaptive_drive(
         "solve_lp", LPData, lp, axes, batch, seg_cold, seg_resume, IPMSolution,
         max_iter, chunk_iters, bucket_ladder(batch, ladder_base), warm_start,
@@ -527,3 +535,356 @@ def solve_lp_pdhg_adaptive(
     _check_conformance(conformance, SparseLP, lps, axes, batch, out,
                        "solve_lp_pdhg", stats=stats)
     return (out, tr) if trace else out
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: slot refill instead of compaction
+
+
+def dense_segments(trace: bool, solver_kw: dict):
+    """The dense IPM's ``(seg_cold, seg_resume)`` pair: ``seg_cold(d, w,
+    stop)`` starts a batch (from warm seeds `w`, or cold with None) and
+    ``seg_resume(d, s, stop)`` resumes one from its `IPMState`; both run
+    `solve_lp_partial` to `stop`, an int or a per-lane tensor, and return
+    ``(IPMSolution, IPMState)``. The stop only decides where the host
+    looks: a lane's iterate sequence never depends on it."""
+    from ..solvers.ipm import solve_lp_partial
+
+    def seg_cold(d, w, stop):
+        return solve_lp_partial(d, warm_start=w, it_stop=stop, trace=trace, **solver_kw)
+
+    def seg_resume(d, s, stop):
+        return solve_lp_partial(d, state=s, it_stop=stop, trace=trace, **solver_kw)
+
+    return seg_cold, seg_resume
+
+
+def _host(a) -> np.ndarray:
+    """A tensor on any device, an array or a number, as numpy."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _host_row(row):
+    return type(row)(*(_host(a) for a in row))
+
+
+def _where_rows(sel, new, old):
+    """Rows of `new` where the per-lane `sel` holds, else rows of `old`,
+    over a (nested) NamedTuple of batch-first tensors."""
+    if isinstance(new, tuple):
+        items = [_where_rows(sel, n, o) for n, o in zip(new, old)]
+        return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
+    return torch.where(sel.reshape(sel.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def _require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises
+    (the serving tier never falls back to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the serving tier was asked for a CUDA device and none is "
+            "available; pass device='cpu' to serve on the CPU"
+        )
+    return device
+
+
+class SlotEngine:
+    """Fixed-bucket continuous-batching engine (port of the JAX package's
+    `SlotEngine`). Where `_adaptive_drive` compacts to a smaller bucket
+    when lanes retire, this engine keeps the bucket size fixed and
+    back-fills freed slots with new problems between chunks: under
+    sustained load there is always fresh work.
+
+    Per `step()`:
+
+    1. rows admitted since the last chunk are copied from the persistent
+       host mirror into the device batch (only those rows);
+    2. newly admitted slots get their cold loop state from ``seg_cold`` at
+       a stop of 0 (no iteration), scattered into the carried state with
+       `torch.where` on a per-lane mask. The first chunk goes through the
+       same scatter (every row selected), so the carried state has one
+       code path;
+    3. every occupied slot resumes to its own stop,
+       ``min(it + chunk_iters, max_iter)``, taken from the host's marks:
+       a surviving lane always ran exactly to its previous stop. Idle
+       slots get stop 0 and stay frozen;
+    4. one host read of every lane's ``done`` and ``it``; finished lanes
+       are harvested (one device-to-host copy of the chunk's solution)
+       and their slots freed.
+
+    Identity contract (`tests/test_torch_serve.py`, `chip_smoke.py`
+    serve (a)): nothing in the IPM mixes lanes, and every batched kernel
+    depends on the batch size alone, so a lane harvested here is bitwise
+    the same lane in a one-shot ``solve_lp_batch`` of `bucket` lanes on
+    the same device, whenever it was admitted and whatever shared its
+    batch.
+
+    `fields` is the problem NamedTuple class (`LPData`); every field is
+    stacked per slot from the admitted rows, on `device`. Harvested rows
+    have numpy leaves. (The JAX engine's `shared` fields and custom
+    `done_flag` serve its PDHG and banded engines, which the serving tier
+    does not build.)
+    """
+
+    def __init__(
+        self,
+        entry: str,
+        fields,
+        seg_cold,
+        seg_resume,
+        bucket: int,
+        *,
+        chunk_iters: int = 8,
+        max_iter: int = 60,
+        opt_key=(),
+        device="cuda",
+    ):
+        if bucket <= 0:
+            raise ValueError(f"bucket must be positive (got {bucket})")
+        self.entry = entry
+        self.fields = fields
+        self.seg_cold = seg_cold
+        self.seg_resume = seg_resume
+        self.bucket = bucket
+        self.chunk_iters = int(chunk_iters)
+        self.max_iter = int(max_iter)
+        self.device = _require_device(device)
+        self.opt_key = opt_key
+        self._tokens = [None] * bucket  # slot -> caller token (None = idle)
+        self._fresh = [False] * bucket  # needs its cold state before resuming
+        self._buf = None  # persistent (bucket, ...) host mirror of the lane data
+        self._stale = set()  # slots whose device rows lag the mirror
+        self._d_cur = None  # the stacked device data
+        self._st = None  # the carried device state
+        self._zero_stops = None
+        self._sol_dev = None  # the last chunk's solution, on the device
+        self._sol_np_cache = None  # its host copy, made on first use per chunk
+        self.fields_sol = tuple  # set by step() from the first solution
+        # host mirror of each lane's iteration count
+        self._it_mark = np.zeros(bucket, np.int64)
+        self.chunks = 0
+        self.refills = 0
+        # optional chunk-loop observer (obs.reqtrace.EngineJourneyObserver
+        # duck type: chunk_begin / cold_end / compute_end / harvest_end)
+        self.observer = None
+        # optional runtime.remedy.RemedyEngine: a lane that harvests
+        # unhealthy re-solves up the ladder before the caller sees it
+        self.remedy = None
+        # optional obs.conformance.ConformanceChecker: every harvested row
+        # is certified into lane_stats["conformance"]; rows are not touched
+        self.conformance = None
+
+    # -- slot management ----------------------------------------------
+    def free_slots(self) -> int:
+        return sum(t is None for t in self._tokens)
+
+    def active(self) -> list:
+        return [t for t in self._tokens if t is not None]
+
+    def admit(self, token, row) -> int:
+        """Place one problem (`row`: the problem NamedTuple of ONE lane,
+        tensors on any device or arrays) into a free slot. Returns the slot
+        index; raises when full."""
+        for i, t in enumerate(self._tokens):
+            if t is not None:
+                continue
+            row_np = [_host(a) for a in row]
+            if self._buf is None:
+                # every slot starts as a copy of the first row: idle slots
+                # hold finite data and stay frozen at stop 0
+                self._buf = [np.broadcast_to(r, (self.bucket,) + r.shape).copy()
+                             for r in row_np]
+            for name, buf, r in zip(self.fields._fields, self._buf, row_np):
+                if r.shape != buf.shape[1:] or r.dtype != buf.dtype:
+                    raise ValueError(
+                        f"{self.fields.__name__}.{name}: {r.dtype}{list(r.shape)} does "
+                        f"not fit the engine's {buf.dtype}{list(buf.shape[1:])}"
+                    )
+            for buf, r in zip(self._buf, row_np):
+                buf[i] = r
+            self._tokens[i] = token
+            self._fresh[i] = True
+            self._it_mark[i] = 0
+            self._stale.add(i)
+            if self._st is not None:
+                self.refills += 1
+            return i
+        raise RuntimeError("SlotEngine.admit on a full bucket")
+
+    def evict(self, token):
+        """Pull an in-flight lane out mid-solve and return its best iterate
+        so far as a solution row (deadline enforcement); None when the lane
+        has not run a chunk yet."""
+        i = self._tokens.index(token)
+        out = None
+        if self._sol_dev is not None and not self._fresh[i]:
+            out = self.fields_sol(*(leaf[i] for leaf in self._sol_rows()))
+        self._release(i)
+        return out
+
+    def _release(self, i: int) -> None:
+        # the slot's device rows stay in place as finite padding, frozen
+        # at stop 0
+        self._tokens[i] = None
+        self._fresh[i] = False
+
+    # -- the chunk step ------------------------------------------------
+    def _sol_rows(self):
+        """Host copy of the last chunk's solution (at most one
+        device-to-host copy a chunk, none when nothing retires)."""
+        if self._sol_np_cache is None:
+            self._sol_np_cache = [_host(leaf) for leaf in self._sol_dev]
+        return self._sol_np_cache
+
+    def _row_problem(self, i: int, device=None):
+        """One slot's problem NamedTuple, from the host mirror: numpy
+        leaves, or tensors on `device`."""
+        return self.fields(*(
+            buf[i] if device is None else torch.as_tensor(buf[i], device=device)
+            for buf in self._buf
+        ))
+
+    def _sync_rows(self) -> None:
+        """Bring the device batch up to the host mirror: the whole batch on
+        the first chunk, after that only the rows admitted since."""
+        if self._d_cur is None:
+            self._d_cur = self.fields(*(
+                torch.from_numpy(buf).to(self.device, copy=True) for buf in self._buf
+            ))
+        else:
+            for i in sorted(self._stale):
+                for buf, d in zip(self._buf, self._d_cur):
+                    d[i].copy_(torch.from_numpy(np.asarray(buf[i])))
+        self._stale.clear()
+
+    def step(self) -> list:
+        """Run one chunk over the occupied slots. Returns the harvested
+        ``(token, solution_row, lane_stats)`` triples (possibly none);
+        `lane_stats` carries the lane's iteration count. A no-op returning
+        [] when every slot is idle."""
+        if not any(t is not None for t in self._tokens):
+            return []
+        watch = self.observer
+        if watch is not None:
+            watch.chunk_begin(self._tokens)
+        if self._stale:
+            self._sync_rows()
+        occupied = np.asarray([t is not None for t in self._tokens])
+
+        if any(self._fresh):
+            if self._zero_stops is None:
+                self._zero_stops = torch.zeros(self.bucket, dtype=torch.int64,
+                                               device=self.device)
+            _, st0 = self.seg_cold(self._d_cur, None, self._zero_stops)
+            # the first chunk routes through the same scatter as every later
+            # one (every row selected)
+            first = self._st is None
+            sel = torch.as_tensor(
+                np.ones(self.bucket, bool) if first else np.asarray(self._fresh),
+                device=self.device,
+            )
+            self._st = _where_rows(sel, st0, st0 if first else self._st)
+            if watch is not None:
+                watch.cold_end(self._tokens, self._fresh)
+            self._fresh = [False] * self.bucket
+
+        it_before = self._it_mark
+        stops = np.where(
+            occupied, np.minimum(self._it_mark + self.chunk_iters, self.max_iter), 0
+        ).astype(np.int64)
+        sol, st = self.seg_resume(self._d_cur, self._st, torch.as_tensor(stops, device=self.device))
+        self._st = st
+        self._it_mark = stops
+        self.chunks += 1
+        self._sol_dev = sol
+        self._sol_np_cache = None
+        self.fields_sol = type(sol)
+        # the chunk's one host read: every lane's stop flag and iteration
+        done_h, its = torch.stack([st.done.long(), st.it.long()]).cpu().numpy()
+        finished = done_h.astype(bool) | (its >= self.max_iter)
+        if watch is not None:
+            watch.compute_end(self._tokens, it_before, stops)
+
+        out = []
+        slots = []
+        if finished.any():
+            sol_np = self._sol_rows()
+            for i, token in enumerate(self._tokens):
+                if token is None or not finished[i]:
+                    continue
+                row = type(sol)(*(leaf[i] for leaf in sol_np))
+                lane_stats = {"iterations": int(its[i])}
+                if self.remedy is not None:
+                    # the ladder re-solves on the engine's device
+                    row, rinfo = self.remedy.remediate_solution_row(
+                        self._row_problem(i, self.device), row, budget=self.max_iter,
+                        deadline=getattr(token, "deadline", None),
+                        request_id=getattr(token, "request_id", None),
+                    )
+                    if rinfo is not None:
+                        row = _host_row(row)
+                        lane_stats["remediation"] = rinfo
+                out.append((token, row, lane_stats))
+                slots.append(i)
+                self._release(i)
+        if out:
+            obs_metrics.inc("adaptive_lanes_retired_total", len(out), entry=self.entry)
+            if watch is not None:
+                watch.harvest_end([tok for tok, _, _ in out])
+            if self.conformance is not None:
+                # a released slot's mirror row stays until the next admit,
+                # so the lane's problem is still there; certified on the host
+                for (_, row, lane_stats), i in zip(out, slots):
+                    lane_stats["conformance"] = self.conformance.check_row(
+                        self._row_problem(i), row, entry=self.entry
+                    )
+        return out
+
+
+def make_dense_engine(
+    bucket: int,
+    *,
+    chunk_iters: int = 8,
+    trace: bool = False,
+    warm_predictor=None,
+    remedy=None,
+    conformance=None,
+    device="cuda",
+    **solver_kw,
+) -> SlotEngine:
+    """One dense-LP `SlotEngine` at `bucket` lanes on `device`: the
+    construction the in-process service (`serve.service.make_dense_service`)
+    and the fleet's shard child (`serve.shard`) share, so both run the
+    same solves and the bitwise contract holds across the process
+    boundary. `solver_kw` flows to `solve_lp_partial` (`max_iter` also
+    bounds each lane's budget).
+
+    `remedy` (a `runtime.remedy.RemedyEngine` / `RemedyPolicy` / True)
+    re-solves lanes that harvest unhealthy up the escalation ladder;
+    `conformance` (True / `ConformancePolicy` / `ConformanceChecker`)
+    certifies every harvested row and leaves it as it is.
+    `warm_predictor` (learned warm starts) is not ported yet and raises
+    NotImplementedError."""
+    from ..core.program import LPData
+    from ..solvers.ipm import _reject_deferred
+
+    _reject_deferred(warm_predictor=warm_predictor)
+    solver_kw.setdefault("max_iter", 60)
+    seg_cold, seg_resume = dense_segments(trace, solver_kw)
+    engine = SlotEngine(
+        "serve_dense", LPData, seg_cold, seg_resume, bucket,
+        chunk_iters=chunk_iters, max_iter=solver_kw["max_iter"],
+        opt_key=_opt_key(solver_kw), device=device,
+    )
+    if remedy is not None:
+        from .remedy import as_remedy
+
+        engine.remedy = as_remedy(remedy, solver_kw=solver_kw, entry="serve_dense")
+    if conformance is not None:
+        from ..obs.conformance import as_conformance
+
+        engine.conformance = as_conformance(conformance)
+    return engine

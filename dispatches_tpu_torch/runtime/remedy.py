@@ -30,11 +30,18 @@ captured by the installed flight recorder: the problem, the options, the
 ``unrecoverable`` verdict and, when the ``cold`` rung ran, its re-solve
 (the original options without a warm start, which a replay of the
 capture reproduces). The outcome also goes into the adaptive entry
-points' ``stats["remediated"]``. The JAX package's request ids and
-deadlines belong to its serving tier.
+points' ``stats["remediated"]``.
+
+In the serving tier the ladder is bounded by the request's deadline too:
+`remediate(deadline=...)` stops climbing the moment the engine's `clock`
+reaches it (less `RemedyPolicy.deadline_margin`), and the original verdict
+stands, as the deadline machinery owns that failure.
+`remediate_solution_row` is the `SlotEngine` harvest hook: it classifies
+one harvested row and runs the ladder when the verdict is remediable.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -65,14 +72,15 @@ obs_metrics.describe(
 
 class RemedyPolicy(NamedTuple):
     """Knobs of the escalation ladder. `max_attempts` is the per-request
-    retry budget (rungs solved; skipped rungs are free). The JAX package's
-    `deadline_margin` serves its serving tier's deadlines and comes with
-    that tier."""
+    retry budget (rungs solved; skipped rungs are free);
+    `deadline_margin` stops the ladder that many seconds before a
+    request's deadline."""
 
     max_attempts: int = 4
     reg_scale: float = 1e3  # rung-2 multiplier over the dtype reg defaults
     allow_f64: bool = True
     allow_lane_switch: bool = True
+    deadline_margin: float = 0.0  # stop climbing this early (seconds)
 
 
 class RemedyOutcome(NamedTuple):
@@ -87,10 +95,11 @@ class RemedyOutcome(NamedTuple):
         return self.rung is not None
 
 
-def as_remedy(spec, *, solver_kw=None, entry="solve_lp"):
+def as_remedy(spec, *, solver_kw=None, entry="solve_lp", clock=None):
     """Coerce a ``remedy=`` argument into a `RemedyEngine` (or None):
     None, True (default policy), a `RemedyPolicy`, a dict of policy
-    keywords, or an engine (returned as is)."""
+    keywords, or an engine (returned as is, its own options and clock
+    kept)."""
     if spec is None:
         return None
     if isinstance(spec, RemedyEngine):
@@ -99,14 +108,15 @@ def as_remedy(spec, *, solver_kw=None, entry="solve_lp"):
         spec = RemedyPolicy()
     elif isinstance(spec, dict):
         spec = RemedyPolicy(**spec)
-    return RemedyEngine(spec, solver_kw=solver_kw, entry=entry)
+    return RemedyEngine(spec, solver_kw=solver_kw, entry=entry, clock=clock)
 
 
 class RemedyEngine:
     """One remediation policy bound to the solver options of the path it
     heals (`entry` labels its metrics). Host-side and stateless between
     calls; each `remediate` re-solves on the device of the problem's
-    tensors."""
+    tensors. `clock` (default `time.monotonic`) is the domain of the
+    deadlines passed to `remediate`."""
 
     def __init__(
         self,
@@ -114,20 +124,25 @@ class RemedyEngine:
         *,
         solver_kw: Optional[dict] = None,
         entry: str = "solve_lp",
+        clock=None,
     ):
         self.policy = policy or RemedyPolicy()
         self.solver_kw = dict(solver_kw or {})
         # the ladder re-solves plainly
         self.solver_kw.pop("trace", None)
         self.entry = entry
+        self.clock = clock or time.monotonic
 
-    def remediate(self, problem, verdict, *, meta=None) -> RemedyOutcome:
+    def remediate(self, problem, verdict, *, deadline: Optional[float] = None,
+                  request_id=None, meta=None) -> RemedyOutcome:
         """Run the ladder for ONE unbatched problem (`LPData`, `SparseLP`,
         or `BandedLP` with its `meta`) whose solve earned `verdict`.
         ``outcome.solution`` is a one-lane solution shaped and typed like
         the original path's row, to substitute in place. Never raises: a
         rung whose re-solve fails is recorded in the history and the
-        ladder climbs on."""
+        ladder climbs on. With `deadline` (on the engine's clock) the
+        ladder stops before a rung that would start past it, and the
+        outcome keeps the original verdict."""
         pol = self.policy
         original = getattr(verdict, "verdict", str(verdict))
         kind = type(problem).__name__
@@ -138,6 +153,9 @@ class RemedyEngine:
         cold = None  # the cold rung's re-solve, kept for a give-up capture
         for rung in RUNGS:
             if attempts >= pol.max_attempts:
+                break
+            if deadline is not None and self.clock() >= deadline - pol.deadline_margin:
+                history.append((rung, "deadline"))
                 break
             try:
                 result = getattr(self, f"_rung_{rung}")(kind, problem, meta)
@@ -162,6 +180,8 @@ class RemedyEngine:
             final = obs_health.Verdict(
                 "healthy", None, None, f"remediated ({won}) from {original}"
             )
+        elif any(note == "deadline" for _, note in history):
+            final = verdict  # the deadline machinery owns this failure
         else:
             final = obs_health.Verdict(
                 "unrecoverable",
@@ -177,7 +197,8 @@ class RemedyEngine:
                 problem=problem,
                 solution=cold,
                 options=dict(self.solver_kw),
-                extra={"remediation": [list(h) for h in history]},
+                extra={"remediation": [list(h) for h in history],
+                       "request_id": request_id},
             )
         get_tracer().event(
             "remediation",
@@ -187,8 +208,31 @@ class RemedyEngine:
             rung=won,
             attempts=attempts,
             rungs=[f"{r}:{n}" for r, n in history],
+            request_id=request_id,
         )
         return RemedyOutcome(sol, final, won, attempts, tuple(history))
+
+    def remediate_solution_row(self, problem, row, *, budget: Optional[int] = None,
+                               deadline: Optional[float] = None, request_id=None,
+                               meta=None):
+        """Classify one harvested solution row and run the ladder when its
+        verdict is remediable: ``(row, info)``, the row replaced when the
+        ladder recovered it, and a JSON-safe record of what ran (None when
+        the row was healthy). The `SlotEngine` harvest hook."""
+        vs = obs_health.classify_solution(row, budget=budget)
+        v = vs[0] if vs else None
+        if v is None or v.verdict not in REMEDIABLE:
+            return row, None
+        out = self.remediate(problem, v, deadline=deadline, request_id=request_id,
+                             meta=meta)
+        info = {
+            "original": v.verdict,
+            "verdict": out.verdict.verdict,
+            "rung": out.rung,
+            "attempts": out.attempts,
+            "recovered": out.recovered,
+        }
+        return (out.solution if out.recovered else row), info
 
     # -- the rungs: each returns (solution, classify budget), or a short
     # string naming why the rung does not apply

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.program import LPData
 from ..obs.trace import SolveTrace, empty_trace as _empty_trace, record as _tr_record
@@ -95,10 +96,21 @@ def pin_matmul_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+# options of the JAX package whose modules are not ported yet, and the
+# ROADMAP.md item that brings each
+_DEFERRED = {
+    "warm_predictor": "A6", "warm_model": "A6", "lane_model": "A6",
+    "perf": "A7", "lanes": "A7", "lane_policy": "A7", "timeseries": "A7",
+    "capacity": "A7", "store": "A7", "alert_rules": "A7", "slo_fn": "A7",
+}
+
+
 def _reject_deferred(**kw) -> None:
     for name, v in kw.items():
         if v is not None and v is not False:
-            raise NotImplementedError(f"{name}= is not ported yet")
+            item = _DEFERRED.get(name)
+            where = f" (ROADMAP {item})" if item else ""
+            raise NotImplementedError(f"{name}= is not ported yet{where}")
 
 
 def _chol(K: torch.Tensor, symmetrize: bool = True) -> torch.Tensor:
@@ -129,6 +141,44 @@ def _max_step(v, dv, mask):
     ratios = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
                          torch.full_like(v, float("inf")))
     return torch.clamp(ratios.amin(-1), max=1.0)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _tree_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, whose length is a power of two, by halving:
+    the same order of adds for every lane, batch size and device."""
+    w = t.shape[-1]
+    while w > 1:
+        w //= 2
+        t = t[..., :w] + t[..., w:]
+    return t[..., 0]
+
+
+def _vsum(v: torch.Tensor) -> torch.Tensor:
+    """`_tree_sum` over a last axis of any length (zero-padded)."""
+    n = v.shape[-1]
+    p = _pow2(n)
+    return _tree_sum(F.pad(v, (0, p - n)) if p != n else v)
+
+
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """Per-lane sum over the last axis. On the card a fixed-order halving
+    sum: CUDA's reduction kernels add a row in an order that depends on
+    the row's address alignment, so one lane gave other bits at another
+    position of the batch (`sum` and `vector_norm` over rows of 1,681 or
+    2,355 f64, `tools/torch_serve_lanes.py`), and the serving engine puts
+    a lane in whatever slot is free. The CPU's sum does not depend on the
+    position, and stays."""
+    return _vsum(v) if v.is_cuda else v.sum(-1)
+
+
+def _lane_norm(v: torch.Tensor) -> torch.Tensor:
+    """Per-lane 2-norm over the last axis, position-independent as
+    `_lane_sum`."""
+    return torch.sqrt(_vsum(v * v)) if v.is_cuda else torch.linalg.vector_norm(v, dim=-1)
 
 
 def _max0(x: torch.Tensor) -> torch.Tensor:
@@ -332,7 +382,7 @@ def _solve_lp_inner(lp, tol=1e-8, max_iter=60, reg_p=None, reg_d=None,
     y = sol.y * r * sig_c
     zl = sol.zl / cs * sig_c
     zu = sol.zu / cs * sig_c
-    obj = (c0v * x).sum(-1) + 0.5 * ((q0 * x) * x).sum(-1) + off0
+    obj = _lane_sum(c0v * x) + 0.5 * _lane_sum((q0 * x) * x) + off0
     return (sol._replace(x=x, y=y, zl=zl, zu=zu, obj=obj), *out[1:])
 
 
@@ -483,8 +533,8 @@ def _solve_scaled(
     l_s = torch.where(fl, l, zero)
     u_s = torch.where(fu, u, zero)
 
-    bnorm = 1.0 + torch.linalg.vector_norm(b, dim=-1)
-    cnorm = 1.0 + torch.linalg.vector_norm(c, dim=-1)
+    bnorm = 1.0 + _lane_norm(b)
+    cnorm = 1.0 + _lane_norm(c)
 
     # -- starting point ------------------------------------------------
     both = fl & fu
@@ -503,23 +553,23 @@ def _solve_scaled(
         z0l, z0u = _sel(ok_w, zl_w, z0l), _sel(ok_w, zu_w, z0u)
 
     def dot(a, v):
-        return (a * v).sum(-1)
+        return _lane_sum(a * v)
 
     def residuals(x, y, zl, zu):
         rp = b - matvec(x)
         rd = c + q * x - rmatvec(y) - zl + zu
         xl = torch.where(fl, x - l_s, 1.0)
         xu = torch.where(fu, u_s - x, 1.0)
-        comp = torch.where(fl, xl * zl, zero).sum(-1) + torch.where(
-            fu, xu * zu, zero
-        ).sum(-1)
+        comp = _lane_sum(torch.where(fl, xl * zl, zero)) + _lane_sum(
+            torch.where(fu, xu * zu, zero)
+        )
         return rp, rd, comp
 
     def merit_of(rp, rd, comp, x):
         return torch.maximum(
             torch.maximum(
-                torch.linalg.vector_norm(rp, dim=-1) / bnorm,
-                torch.linalg.vector_norm(rd, dim=-1) / cnorm,
+                _lane_norm(rp) / bnorm,
+                _lane_norm(rd) / cnorm,
             ),
             comp / (1.0 + dot(c, x).abs()),
         )
@@ -532,8 +582,8 @@ def _solve_scaled(
         rp = b - matvec(x)
         rd = c + q * x - rmatvec(y) - zl_s + zu_s
         mu = (
-            torch.where(fl, xl * zl, zero).sum(-1)
-            + torch.where(fu, xu * zu, zero).sum(-1)
+            _lane_sum(torch.where(fl, xl * zl, zero))
+            + _lane_sum(torch.where(fu, xu * zu, zero))
         ) / nlu
 
         d = (
@@ -578,8 +628,8 @@ def _solve_scaled(
         ap, ad = steps(dx_a, dzl_a, dzu_a)
         apc, adc = ap[:, None], ad[:, None]
         mu_aff = (
-            torch.where(fl, (xl + apc * dx_a) * (zl + adc * dzl_a), zero).sum(-1)
-            + torch.where(fu, (xu - apc * dx_a) * (zu + adc * dzu_a), zero).sum(-1)
+            _lane_sum(torch.where(fl, (xl + apc * dx_a) * (zl + adc * dzl_a), zero))
+            + _lane_sum(torch.where(fu, (xu - apc * dx_a) * (zu + adc * dzu_a), zero))
         ) / nlu
         sigma = torch.clamp((mu_aff / (mu + 1e-300)) ** 3, 0.0, 1.0)
         smu = (sigma * mu)[:, None]
@@ -659,8 +709,8 @@ def _solve_scaled(
         if trace:
             tr = _tr_record(
                 tr, it,
-                torch.linalg.vector_norm(rp_n, dim=-1) / bnorm,
-                torch.linalg.vector_norm(rd_n, dim=-1) / cnorm,
+                _lane_norm(rp_n) / bnorm,
+                _lane_norm(rd_n) / cnorm,
                 comp_n / (1.0 + dot(c, x_n).abs()),
                 ap, ad,
             )
@@ -698,8 +748,8 @@ def _solve_scaled(
     rp, rd, comp = residuals(x, y, zl, zu)
     # convergence from the final residuals, at 100x tol (breakdown can stop
     # the loop a hair early); the same residuals feed the status
-    rp_rel = torch.linalg.vector_norm(rp, dim=-1) / bnorm
-    rd_rel = torch.linalg.vector_norm(rd, dim=-1) / cnorm
+    rp_rel = _lane_norm(rp) / bnorm
+    rd_rel = _lane_norm(rd) / cnorm
     gap_rel = comp / (1.0 + dot(c, x).abs())
     conv = (rp_rel < 100 * tol) & (rd_rel < 100 * tol) & (gap_rel < 100 * tol)
     sol = IPMSolution(

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from ..core.program import SparseLP
 from ..obs.trace import SolveTrace, empty_trace as _empty_trace, record as _tr_record
-from .ipm import _sel, _squeeze_lane, _unsqueeze_lane
+from .ipm import _pow2, _sel, _squeeze_lane, _tree_sum, _unsqueeze_lane, _vsum
 
 # restart-scheme constants (PDLP's defaults, arXiv:2106.04756 §4.3.2)
 _RESTART_SUFFICIENT = 0.2
@@ -91,27 +91,6 @@ class PDHGState(NamedTuple):
     score_r: torch.Tensor
     score_prev: torch.Tensor
     restarts: torch.Tensor
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, int(n) - 1).bit_length()
-
-
-def _tree_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, whose length is a power of two, by halving:
-    the same order of adds for every lane, batch size and device."""
-    w = t.shape[-1]
-    while w > 1:
-        w //= 2
-        t = t[..., :w] + t[..., w:]
-    return t[..., 0]
-
-
-def _vsum(v: torch.Tensor) -> torch.Tensor:
-    """`_tree_sum` over a last axis of any length (zero-padded)."""
-    n = v.shape[-1]
-    p = _pow2(n)
-    return _tree_sum(F.pad(v, (0, p - n)) if p != n else v)
 
 
 def _dot(a, b):

@@ -81,7 +81,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         p for p in (ROOT / "dispatches_tpu_torch").rglob("*.py")
         if "_build" not in p.parts  # kernel build outputs, git-ignored
     )
-    sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_replay_solve.py"]
+    sources += [ROOT / "chip_smoke.py"] + [
+        ROOT / "tools" / f"{name}.py"
+        for name in ("torch_replay_solve", "torch_serve_dispatch", "torch_loadgen")
+    ]
     assert len(sources) > 10
     bad = re.compile(
         r"^\s*(?:import|from)\s+jax\b"  # jax itself
