@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernel  # build + kernel checks only
     python3 chip_smoke.py --phases pdhg    # the PDHG lane alone
     python3 chip_smoke.py --phases serve   # the serving tier alone
+    python3 chip_smoke.py --phases market  # the market layer and double loop alone
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
@@ -181,6 +182,48 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               chain_sweep launches on this path are read (0: the dense
               IPM takes no banded sweep). The gates are raised at the
               phase's end, after every number has printed.
+ 10. market   the market layer and the double loop on the card (dense IPM
+              only; chain_sweep's launches are read, 0):
+              (a) `run_double_loop` (2 days, bundled 5-bus grid, the wind +
+                  PEM participant, optimizing RUC on its device backend):
+                  48 rows, every SCED converged, no shortfall above 1e-3
+                  MW, the participant above 1 MW at some hour; the same 2
+                  days without the participant (`test_network.py:312-322`'s
+                  run): converged, no shortfall, every LMP in (0, 100); 4 sampled SCEDs' objectives within rel 1e-5 /
+                  abs 1e-2 of HiGHS on the same LP; each day's RUC schedule,
+                  costed by its batched evaluation, within [1 - 1e-6, 1.01]
+                  x the exact MILP's cost (the host backend's choice
+                  printed beside it). Printed: wall, SCEDs/s, seconds in the
+                  RUC, day-ahead batches, SCEDs, tracking and bids; the mean
+                  SCED and tracking LP ms, and one profiled hour (its SCED
+                  and a tracking LP): launches, scalar reads, device busy;
+              (b) `synthesize_network(73, 73, days=2, seed=5,
+                  rating_mode="flow")` on the card, simulated 2 days with
+                  the host RUC (`backend="host"`): 48 SCEDs converged, at
+                  most 6 shed hours, LMPs apart by > $0.5 in >= 30% of
+                  hours (`test_uc_scale.py`), 4 SCEDs against HiGHS as in
+                  (a). Printed: flow-rating wall, RUC s a day, SCED s,
+                  SCEDs/s;
+              (c) the N-1 screen of (b)'s grid at hour 0 (every
+                  non-islanding branch and every unit): the K-lane
+                  instantiate's ms, `solve_lp_adaptive` and a 16-slot dense
+                  engine (wall, LPs/s); every lane converged, but for
+                  outages no dispatch survives (must-run generation
+                  stranded: the contingency program has no over-generation
+                  slack, as in the JAX package), which must end
+                  suspected_primal_infeasible with HiGHS infeasible on the
+                  same LP, the same lanes on both paths; every engine lane
+                  bitwise its lane of a one-shot batch of 16; then
+                  `secure_dispatch(conformance=True)` over the outages
+                  some dispatch survives: N-1 feasible, 0 escaped,
+                  certificates pass (rounds, cuts printed);
+              (d) `test_stochastic_bidder.py`'s SimpleMarket double loop (3
+                  days), the miscalibrated parametrized bidder against
+                  `StochasticBidder(n_scenario=3)`: every scenario
+                  solution and bid curve monotone within 1e-4, stochastic
+                  profit above 1.02 x the parametrized. Printed: walls, the
+                  ms of one scenario LP.
+              The gates are raised at the phase's end.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -2163,11 +2206,471 @@ def phase_serve():
                 profile=prof, launches=launches)
 
 
+# ------------------------------------------------------------------ market
+MARKET_DEVICE = "cuda"
+MARKET_BUSES = 73  # (b), (c): the reference's RTS-GMLC bus and unit count
+MARKET_ENGINE_BUCKET = 16
+MARKET_SAMPLE_HOURS = (0, 13, 30, 47)  # the HiGHS objective checks of (a), (b)
+MARKET_KW = dict(max_iter=60)
+_MARKET_FAILS = []
+
+
+def _market_fail(msg):
+    """A failed gate of the market phase: logged now, raised at its end."""
+    log(f"[market] GATE FAILED: {msg}")
+    _MARKET_FAILS.append(msg)
+
+
+class _Clock:
+    """Host seconds (and calls) by label around patched callables; every
+    wrapped call returns host values or reads the device, so its wall is
+    the solve's."""
+
+    def __init__(self):
+        self.t, self.n, self.calls = {}, {}, {}
+
+    def add(self, key, dt, record=None):
+        self.t[key] = self.t.get(key, 0.0) + dt
+        self.n[key] = self.n.get(key, 0) + 1
+        if record is not None:
+            self.calls.setdefault(key, []).append(record)
+
+
+@contextlib.contextmanager
+def _timed(clock, patches):
+    """Patch each (owner, attribute, label_fn) with a timed wrapper for the
+    duration; `label_fn(args, kwargs)` names the call's bucket (None: untimed)
+    and the wrapper records (self/args, kwargs, result) under it."""
+    saved = []
+    for owner, name, label in patches:
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+
+        def wrapper(*a, _orig=orig, _label=label, **kw):
+            t0 = time.perf_counter()
+            out = _orig(*a, **kw)
+            key = _label(a, kw)
+            if key is not None:
+                clock.add(key, time.perf_counter() - t0, (a, kw, out))
+            return out
+
+        setattr(owner, name, wrapper)
+    try:
+        yield clock
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def _market_patches():
+    """Timers over the simulator's stages: the RUC, the day-ahead batch and
+    each SCED (`solve_hours` by its hour count), tracking, bidding."""
+    from dispatches_tpu_torch.market import bidder, network, stochastic, tracker
+
+    return [
+        (network.OptimizingUnitCommitment, "commit", lambda a, kw: "ruc"),
+        (network, "solve_hours",
+         lambda a, kw: "sced" if len(a[2]) == 1 else ("da" if len(a[2]) == 24 else None)),
+        (tracker.Tracker, "track_market_dispatch", lambda a, kw: "tracker"),
+        (bidder.PEMParametrizedBidder, "compute_day_ahead_bids", lambda a, kw: "bids"),
+        (bidder.PEMParametrizedBidder, "compute_real_time_bids", lambda a, kw: "bids"),
+        (stochastic.StochasticBidder, "_solve_bidding", lambda a, kw: "scenario_lp"),
+    ]
+
+
+def _sced_vs_highs(tag, clock, hours):
+    """The HiGHS objective of each sampled hour's SCED LP (instantiated on
+    the host from the recorded inputs) against the card's, at the JAX
+    package's tolerances (rel 1e-5, abs 1e-2, `test_uc_scale.py:137-140`)."""
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy
+
+    calls = clock.calls["sced"]
+    worst = 0.0
+    for h in hours:
+        (prog, _g, loads, ren, commit), kw, out = calls[h]
+        p = {"load": loads[0], "ren_cap": ren[0], "commit": commit[0]}
+        if kw.get("bid_mw") is not None:
+            p["bid_mw"], p["bid_cost"] = kw["bid_mw"][0], kw["bid_cost"][0]
+        if kw.get("reserve_req") is not None:
+            p["reserve_req"] = np.asarray(kw["reserve_req"], float)[:1]
+        ref = solve_lp_scipy(prog.instantiate(p, device="cpu")).obj_with_offset
+        got = float(out["cost"][0])
+        err = abs(got - ref)
+        worst = max(worst, err / max(abs(ref), 1e-12))
+        log(f"[market] ({tag}) hour {h}: SCED objective {got:.6f} HiGHS {ref:.6f} "
+            f"|diff| {err:.3e}")
+        if not err <= 1e-2 + 1e-5 * abs(ref):
+            _market_fail(f"({tag}) hour {h}: SCED objective {got} vs HiGHS {ref}")
+    return worst
+
+
+def _market_rows_gates(tag, rows, n_hours):
+    """48 converged SCEDs: (shed hours, LMP array)."""
+    if len(rows) != n_hours:
+        _market_fail(f"({tag}) {len(rows)} rows, expected {n_hours}")
+    unconv = [i for i, r in enumerate(rows) if not r["SCED Converged"]]
+    if unconv:
+        _market_fail(f"({tag}) SCEDs not converged at hours {unconv}")
+    lmps = np.array([[v for k, v in r.items() if k.startswith("LMP")] for r in rows])
+    shed = np.array([r["Shortfall [MW]"] for r in rows])
+    return shed, lmps
+
+
+def _profile_single_lps(fns):
+    """One profiled window over single-LP solves: launches per LP and the
+    device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:  # warm
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches, syncs = 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            dev_us += us
+            launches += e.count
+        elif e.key == "aten::_local_scalar_dense":
+            syncs += e.count
+    busy = dev_us / 1e6 / wall if wall else float("nan")
+    return dict(wall_s=wall, device_busy=busy, launches=launches, scalar_reads=syncs,
+                device_ms=dev_us / 1e3)
+
+
+def _market_doubleloop():
+    """(a) `run_double_loop` (2 days, the wind + PEM participant) on the card."""
+    from dispatches_tpu_torch.market import network
+    from dispatches_tpu_torch.market.double_loop import MultiPeriodWindPEM
+    from dispatches_tpu_torch.market.model_data import RenewableGeneratorModelData
+    from dispatches_tpu_torch.market.tracker import Tracker
+    from dispatches_tpu_torch.workflow.options import SimulationOptions
+    from dispatches_tpu_torch.workflow.runners import run_double_loop
+
+    clock = _Clock()
+    t0 = time.perf_counter()
+    with _timed(clock, _market_patches()):
+        rows, summary = run_double_loop(SimulationOptions(num_days=2), verbose=False,
+                                        device=MARKET_DEVICE)
+    wall = time.perf_counter() - t0
+    shed, lmps = _market_rows_gates("a", rows, 48)
+    part = np.array([r["Participant [MW]"] for r in rows])
+    if shed.max() > 1e-3:
+        _market_fail(f"(a) shortfall {shed.max():.3e} MW > 1e-3")
+    # the LMP gate of `test_network.py:312-322` is that test's run: the same
+    # 2 days without the participant (with it, its $0 tranche sets the price
+    # to 0 in some hours, as in the JAX package)
+    t1 = time.perf_counter()
+    rows0 = network.ProductionCostSimulator(network.load_rts_format(),
+                                            device=MARKET_DEVICE).simulate(2)
+    wall0 = time.perf_counter() - t1
+    shed0, lmps0 = _market_rows_gates("a, no participant", rows0, 48)
+    log(f"[market] (a) the same 2 days without the participant: {wall0:.2f} s, LMP "
+        f"{lmps0.min():.3f}..{lmps0.max():.3f} $/MWh, shortfall max {shed0.max():.2e} MW")
+    if shed0.max() > 1e-3:
+        _market_fail(f"(a) no participant: shortfall {shed0.max():.3e} MW > 1e-3")
+    if not (lmps0 > 0).all() or not (lmps0 < 100).all():
+        _market_fail(f"(a) no participant: LMPs outside (0, 100): "
+                     f"{lmps0.min():.3f}..{lmps0.max():.3f}")
+    if not part.max() > 1.0:
+        _market_fail(f"(a) the participant never cleared above 1 MW ({part.max():.3f})")
+    split = {k: clock.t.get(k, 0.0) for k in ("ruc", "da", "sced", "tracker", "bids")}
+    log(f"[market] (a) doubleloop 2 days: {len(rows)} SCEDs in {wall:.2f} s "
+        f"({len(rows) / wall:.2f} SCEDs/s end to end); seconds: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in split.items()) +
+        f", other {wall - sum(split.values()):.2f}")
+    log(f"[market] (a) LMP {lmps.min():.3f}..{lmps.max():.3f} $/MWh, participant max "
+        f"{part.max():.2f} MW, shortfall max {shed.max():.2e} MW; summary {summary}")
+    worst = _sced_vs_highs("a", clock, MARKET_SAMPLE_HOURS)
+    # the RUC: each day's device-chosen schedule, costed by its own batched
+    # evaluation, between the exact MILP's cost x (1 - 1e-6) and x 1.01
+    ruc = []
+    for (ouc, loads, ren), _kw, sched in clock.calls["ruc"]:
+        if ouc.backend != "device":
+            _market_fail(f"(a) the RUC took the {ouc.backend} backend on the card")
+        cost, ok = ouc._evaluate(sched[None], loads, ren)
+        p = {"load_total": loads, "ren_total": ren}
+        milp = network.solve_uc_milp(ouc.prog, p).obj_with_offset * 1e3
+        host = network.OptimizingUnitCommitment(ouc.grid, T=ouc.T, backend="host")
+        host_cost = float(host._evaluate(host.commit(loads, ren)[None], loads, ren)[0][0])
+        exact = float(host._evaluate(sched[None], loads, ren)[0][0])
+        ruc.append(dict(device_cost=float(cost[0]), exact_cost=exact, milp=milp,
+                        host_chosen_cost=host_cost))
+        log(f"[market] (a) RUC day {len(ruc) - 1}: device schedule costed {cost[0]:.2f} "
+            f"(exactly {exact:.2f}), MILP {milp:.2f} (ratio {cost[0] / milp:.6f}); the host "
+            f"backend's choice costs {host_cost:.2f}")
+        if not (ok[0] and milp * (1 - 1e-6) <= cost[0] <= milp * 1.01):
+            _market_fail(f"(a) RUC day {len(ruc) - 1}: cost {cost[0]} vs MILP {milp}")
+    n_sced, n_trk = clock.n.get("sced", 0), clock.n.get("tracker", 0)
+    sced_ms = clock.t.get("sced", 0.0) / max(n_sced, 1) * 1e3
+    trk_ms = clock.t.get("tracker", 0.0) / max(n_trk, 1) * 1e3
+    # one profiled hour: that hour's SCED and a tracking LP, replayed
+    (a, kw, _) = clock.calls["sced"][13]
+    md = RenewableGeneratorModelData(gen_name="p", bus="1", p_min=0.0, p_max=50.0)
+    mp = MultiPeriodWindPEM(md, np.full(48, 0.5), wind_pmax_mw=50, pem_pmax_mw=10)
+    trk = Tracker(mp, tracking_horizon=4, n_tracking_hour=1, device=MARKET_DEVICE)
+    prof = _profile_single_lps([lambda: network.solve_hours(*a, **kw),
+                                lambda: trk.track_market_dispatch([20.0] * 4, 0, 13)])
+    log(f"[market] (a) single-LP solves: SCED {sced_ms:.1f} ms mean over {n_sced}, tracker "
+        f"{trk_ms:.1f} ms mean over {n_trk}; one profiled hour (its SCED + a tracking LP): "
+        f"{prof['wall_s'] * 1e3:.1f} ms, {prof['launches']} launches "
+        f"({prof['launches'] / 2:.0f} an LP), {prof['scalar_reads']} device-to-host scalar "
+        f"reads, device busy {prof['device_busy']:.3f}")
+    if prof["device_ms"] == 0:
+        log("[market] (a) the profiler saw no device time: busy share not measured")
+    return dict(wall_s=wall, sceds=len(rows), sceds_per_s=len(rows) / wall, seconds=split,
+                no_participant_wall_s=wall0,
+                sced_ms=sced_ms, tracker_ms=trk_ms, worst_rel_vs_highs=worst, ruc=ruc,
+                profile=prof, summary=summary)
+
+
+def _market_network73():
+    """(b) the production-cost simulator on the synthesized 73-bus network
+    (`test_uc_scale.py:145-170`), flow-rated on the card, host RUC."""
+    from dispatches_tpu_torch.market import network
+
+    t0 = time.perf_counter()
+    g = network.synthesize_network(n_buses=MARKET_BUSES, n_units=MARKET_BUSES, days=2, seed=5,
+                                   rating_mode="flow", device=MARKET_DEVICE)
+    t_flow = time.perf_counter() - t0
+    sim = network.ProductionCostSimulator(g, device=MARKET_DEVICE)
+    # the JAX package's own 73-bus record took the host RUC: one candidate
+    # lane's dense UC LP here is 22,351 x 31,135 (5.6 GB in f64)
+    sim.uc = network.OptimizingUnitCommitment(g, backend="host")
+    clock = _Clock()
+    t0 = time.perf_counter()
+    with _timed(clock, _market_patches()):
+        rows = sim.simulate(2)
+    wall = time.perf_counter() - t0
+    shed, lmps = _market_rows_gates("b", rows, 48)
+    shed_hours = int((shed > 1e-3).sum())
+    spread = float(np.mean((lmps.max(1) - lmps.min(1)) > 0.5))
+    if shed_hours > 6:
+        _market_fail(f"(b) {shed_hours} shed hours > 6")
+    if spread < 0.3:
+        _market_fail(f"(b) LMPs separate in {spread:.2f} of hours < 0.3")
+    prog = sim.prog
+    log(f"[market] (b) {len(g.buses)} buses, {len(g.branch_b)} branches, {len(g.thermal)} "
+        f"units; SCED LP {prog.M} x {prog.N}; flow rating (24 DC-OPFs on the card) "
+        f"{t_flow:.2f} s")
+    log(f"[market] (b) 2 days: {len(rows)} SCEDs in {wall:.2f} s ({len(rows) / wall:.2f} "
+        f"SCEDs/s end to end); RUC (host HiGHS) {clock.t['ruc'] / 2:.2f} s a day, DA batches "
+        f"{clock.t['da']:.2f} s, SCEDs {clock.t['sced']:.2f} s ({len(rows) / clock.t['sced']:.2f} "
+        f"SCEDs/s); shed hours {shed_hours}, LMP spread > $0.5 in {spread:.2f} of hours")
+    worst = _sced_vs_highs("b", clock, MARKET_SAMPLE_HOURS)
+    return dict(grid=g, flow_rating_s=t_flow, wall_s=wall, sceds_per_s=len(rows) / wall,
+                sced_s=clock.t["sced"], ruc_s_per_day=clock.t["ruc"] / 2, da_s=clock.t["da"],
+                shed_hours=shed_hours, spread_share=spread, worst_rel_vs_highs=worst,
+                sced_shape=[prog.M, prog.N])
+
+
+def _market_contingency(g):
+    """(c) the N-1 screen of (b)'s grid at hour 0, on both paths, then the
+    secure dispatch with its certificates."""
+    from dispatches_tpu_torch.market import contingency as C
+    from dispatches_tpu_torch.runtime.adaptive import make_dense_engine
+    from dispatches_tpu_torch.solvers.ipm import STATUS_PRIMAL_INFEASIBLE, solve_lp_batch
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+
+    prog = C.contingency_dcopf_program(g)
+    base = C.base_operating_point(g, hour=0)
+    cset = C.ContingencySet.n_minus_1(g)
+    params = C.contingency_params(g, base, cset)
+    C.stack_contingency_lp(prog, params, device=MARKET_DEVICE)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = C.stack_contingency_lp(prog, params, device=MARKET_DEVICE)
+    torch.cuda.synchronize()
+    inst_ms = (time.perf_counter() - t0) * 1e3
+    K = cset.K
+    log(f"[market] (c) K = {K} outages ({len(cset.branch_indices())} branches, "
+        f"{len(cset.gen_indices())} units), a lane {prog.M} x {prog.N}; the K-lane "
+        f"instantiate (branch_on group, repeats folded on the host) {inst_ms:.1f} ms")
+    out = {"K": K, "lane_shape": [prog.M, prog.N], "instantiate_ms": inst_ms}
+    highs = {}  # lane -> HiGHS's verdict on that lane's LP
+
+    def highs_infeasible(k):
+        if k not in highs:
+            try:
+                solve_lp_scipy_sparse(prog, {n: v[k] for n, v in params.items()})
+                highs[k] = False
+            except RuntimeError as e:
+                highs[k] = "infeasible" in str(e)
+        return highs[k]
+
+    infeasible = None
+    for path in ("adaptive", "engine"):
+        eng = (make_dense_engine(MARKET_ENGINE_BUCKET, device=MARKET_DEVICE, **MARKET_KW)
+               if path == "engine" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scr = C.screen_contingencies(prog, g, cset, base, engine=eng, device=MARKET_DEVICE,
+                                     **({} if eng else MARKET_KW))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # a lane either converges or is an outage no dispatch survives: the
+        # IPM then says suspected_primal_infeasible and HiGHS, on the same
+        # lane's LP, infeasible (must-run blocks stranded: the program has
+        # no over-generation slack, as in the JAX package)
+        stuck = [int(k) for k in np.nonzero(~scr.converged)[0]]
+        status = scr.sol.status.cpu().numpy()
+        for k in stuck:
+            if status[k] != STATUS_PRIMAL_INFEASIBLE or not highs_infeasible(k):
+                _market_fail(f"(c) {path}: lane {k} ({cset[k].label}) not converged, status "
+                             f"{status[k]}, HiGHS infeasible {highs_infeasible(k)}")
+        if infeasible is None:
+            infeasible = stuck
+        elif stuck != infeasible:
+            _market_fail(f"(c) {path}: unconverged lanes {stuck} differ from {infeasible}")
+        log(f"[market] (c) screen via {path}: {len(stuck)} lanes infeasible "
+            f"({[cset[k].label for k in stuck]}: status suspected_primal_infeasible, HiGHS "
+            f"infeasible), {K - len(stuck)} converged")
+        log(f"[market] (c) screen via {path}: {wall:.2f} s, {K / wall:.1f} LPs/s; critical "
+            f"{int(scr.critical.sum())}, shedding {int((scr.shed_mw > C.ABS_TOL).sum())}; stats "
+            f"{ {k: v for k, v in scr.stats.items() if k in ('buckets', 'chunks', 'total_iterations')} }")
+        out[path] = dict(wall_s=wall, lps_per_s=K / wall, converged=int(scr.converged.sum()))
+        if path == "engine":
+            bad = 0
+            B = MARKET_ENGINE_BUCKET
+            for g0 in range(0, K, B):
+                idx = [(g0 + i) if g0 + i < K else i for i in range(B)]
+                ref = solve_lp_batch(type(lp)(*(leaf[idx] for leaf in lp)), **MARKET_KW)
+                for j in range(min(B, K - g0)):
+                    if any(getattr(ref, n)[j].cpu().numpy().tobytes()
+                           != getattr(scr.sol, n)[g0 + j].cpu().numpy().tobytes()
+                           for n in ("x", "y", "obj", "iterations")):
+                        bad += 1
+            out[path]["not_bitwise"] = bad
+            log(f"[market] (c) engine lanes bitwise their one-shot batch of {B}: {K - bad} of {K}")
+            if bad:
+                _market_fail(f"(c) {bad} engine lanes not bitwise their one-shot lane")
+    # preventive security over the outages some dispatch survives: as for
+    # the islanding bridges `n_minus_1` leaves out, no cut fixes the others
+    secure_set = C.ContingencySet([c for k, c in enumerate(cset) if k not in infeasible])
+    t0 = time.perf_counter()
+    sd = C.secure_dispatch(g, base, secure_set, conformance=True, device=MARKET_DEVICE,
+                           **MARKET_KW)
+    wall = time.perf_counter() - t0
+    conf = sd.conformance or {}
+    log(f"[market] (c) secure_dispatch over {sd.total_branch_ctg} branch outages (the "
+        f"{len(infeasible)} infeasible ones left out): {sd.rounds} rounds, {len(sd.cuts)} cuts, feasible "
+        f"{sd.feasible}, escaped {sd.escaped_violations}, violated outages "
+        f"{len(sd.violated_outages)}, {wall:.2f} s; certificates "
+        f"{ {k: conf.get(k) for k in ('res_primal', 'res_dual', 'comp', 'gap', 'outcome')} }")
+    if not (sd.feasible and sd.escaped_violations == 0 and conf.get("ok")):
+        _market_fail(f"(c) secure_dispatch feasible {sd.feasible}, escaped "
+                     f"{sd.escaped_violations}, conformance {conf}")
+    out["infeasible_outages"] = [cset[k].label for k in infeasible]
+    out["secure"] = dict(rounds=sd.rounds, cuts=len(sd.cuts), feasible=sd.feasible,
+                         escaped=sd.escaped_violations, wall_s=wall, conformance=conf)
+    return out
+
+
+def _market_stochastic():
+    """(d) `test_stochastic_bidder.py`'s SimpleMarket double loop (3 days),
+    the miscalibrated parametrized bidder against `StochasticBidder`."""
+    from dispatches_tpu_torch.market import (
+        Backcaster, DoubleLoopCoordinator, PEMParametrizedBidder, PerfectForecaster,
+        RenewableGeneratorModelData, SimpleMarket, StaticGenerator, Tracker,
+    )
+    from dispatches_tpu_torch.market.double_loop import MultiPeriodWindPEM
+    from dispatches_tpu_torch.market.stochastic import StochasticBidder
+
+    daily_cf = np.array([0.7, 0.8, 0.9, 0.8, 0.6, 0.5, 0.4, 0.5] * 3)
+    daily_lmp = np.array([5.0, 10.0, 15.0, 28.0, 40.0, 35.0, 12.0, 8.0] * 3)
+    cfs = np.tile(daily_cf, 400)
+
+    def wind_pem():
+        md = RenewableGeneratorModelData(gen_name="309_WIND_1", bus="Carter", p_min=0.0,
+                                         p_max=50.0, generator_type="renewable")
+        return MultiPeriodWindPEM(model_data=md, wind_capacity_factors=cfs, wind_pmax_mw=50.0,
+                                  pem_pmax_mw=20.0, h2_price_per_kg=1.25)
+
+    def run(bidder):
+        mo_track = wind_pem()
+        tracker = Tracker(mo_track, tracking_horizon=4, n_tracking_hour=1, device=MARKET_DEVICE)
+        coord = DoubleLoopCoordinator(bidder, tracker)
+        fleet = [StaticGenerator(f"g{int(c)}", p, c) for p, c in (
+            (100.0, 5.0), (60.0, 8.0), (60.0, 10.0), (60.0, 12.0), (80.0, 15.0),
+            (80.0, 28.0), (60.0, 35.0), (120.0, 40.0))]
+        price_to_demand = {5.0: 80, 8.0: 140, 10.0: 200, 12.0: 260, 15.0: 330,
+                           28.0: 430, 35.0: 500, 40.0: 580}
+        demand = np.array([price_to_demand[p] for p in daily_lmp])
+        market = SimpleMarket(demand_mw=demand, fleet=fleet, day_ahead_horizon=24)
+        res = market.simulate(coord, n_days=3, tracking_horizon=4)
+        h2 = sum(r["H2 Production [kg/hr]"] for r in mo_track.result_list
+                 if r["Horizon [hr]"] == 0)
+        return sum(r["Revenue [$]"] for r in res) + h2 * 1.25
+
+    rng = np.random.default_rng(0)
+    hist = np.concatenate([daily_lmp + rng.normal(0, 1.0, 24) for _ in range(3)])
+    fc = PerfectForecaster({"309_WIND_1-DACF": cfs, "309_WIND_1-RTCF": cfs,
+                            "Carter-DALMP": np.tile(daily_lmp, 400),
+                            "Carter-RTLMP": np.tile(daily_lmp, 400)})
+    clock = _Clock()
+    t0 = time.perf_counter()
+    with _timed(clock, _market_patches()):
+        p_param = run(PEMParametrizedBidder(wind_pem(), 24, 4, fc, pem_marginal_cost=5.0,
+                                            pem_mw=20.0))
+        t_param = time.perf_counter() - t0
+        stoch = StochasticBidder(wind_pem(), day_ahead_horizon=24, real_time_horizon=4,
+                                 forecaster=Backcaster(hist, n_historical_days=3), n_scenario=3,
+                                 device=MARKET_DEVICE)
+        p_stoch = run(stoch)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for (self_, T, scen, _cf), _kw, (pows, _sol) in clock.calls["scenario_lp"]:
+        for t in range(T):
+            ps = pows[np.argsort(scen[:, t], kind="stable"), t]
+            worst = min(worst, float(np.diff(ps).min()))
+    for row in stoch.bids_result_list:
+        pw = [row[k] for k in sorted(row) if k.startswith("Power ")]
+        cs = [row[k] for k in sorted(row) if k.startswith("Cost ")]
+        worst = min(worst, float(np.diff(pw).min(initial=0.0)), float(np.diff(cs).min(initial=0.0)))
+    n_lp = clock.n.get("scenario_lp", 0)
+    lp_ms = clock.t.get("scenario_lp", 0.0) / max(n_lp, 1) * 1e3
+    log(f"[market] (d) SimpleMarket 3 days: parametrized profit {p_param:.2f} $ "
+        f"({t_param:.2f} s), stochastic {p_stoch:.2f} $ ({wall - t_param:.2f} s; ratio "
+        f"{p_stoch / p_param:.4f}); {n_lp} scenario LPs, {lp_ms:.1f} ms each; worst bid-curve "
+        f"dip {worst:.2e}")
+    if worst < -1e-4:
+        _market_fail(f"(d) a bid curve dips by {worst:.2e} < -1e-4")
+    if not p_stoch > 1.02 * p_param:
+        _market_fail(f"(d) stochastic profit {p_stoch} <= 1.02 x parametrized {p_param}")
+    return dict(wall_s=wall, profit_parametrized=p_param, profit_stochastic=p_stoch,
+                scenario_lps=n_lp, scenario_lp_ms=lp_ms, worst_dip=worst)
+
+
+def phase_market():
+    """The `market` phase (see the module docstring), on the card."""
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+
+    t0 = time.perf_counter()
+    chain_sweep.launches = 0
+    dl = _market_doubleloop()
+    net = _market_network73()
+    ctg = _market_contingency(net.pop("grid"))
+    sto = _market_stochastic()
+    launches = chain_sweep.launches
+    log(f"[market] chain_sweep launches on the market path: {launches} (dense IPM only); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if _MARKET_FAILS:
+        raise AssertionError(f"market phase: {len(_MARKET_FAILS)} gates failed: {_MARKET_FAILS}")
+    return dict(doubleloop=dl, network=net, contingency=ctg, stochastic=sto, launches=launches)
+
+
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
 PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
-                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300}
+                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400}
 
 
 def _guarded(name, fn):
@@ -2181,9 +2684,10 @@ def _guarded(name, fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve",
+    ap.add_argument("--phases",
+                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market",
                     help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
-                    "serve (device and build always run)")
+                    "serve, market (device and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -2204,6 +2708,7 @@ def main(argv=None):
     if "pdhg" in phases:
         _guarded("pdhg", lambda: phase_pdhg(year.get("records")))
     serve = _guarded("serve", phase_serve) if "serve" in phases else {}
+    market = _guarded("market", phase_market) if "market" in phases else {}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -2217,7 +2722,8 @@ def main(argv=None):
                              "grad_bracket": grad.get("bracket_launches"),
                              "adaptive_year": adaptive.get("year", {}).get("launches"),
                              "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
-                             "serve": serve.get("launches")},
+                             "serve": serve.get("launches"),
+                             "market": market.get("launches")},
         # the adaptive year batch's launches by chain count (compaction)
         "adaptive_launches_by_chains": adaptive.get("year", {}).get("launches_by_chains"),
         "max_abs_err": max_err,

@@ -465,6 +465,19 @@ class CompiledLP:
     def _full(self, x: torch.Tensor) -> torch.Tensor:
         return self.expand(x) if x.shape[-1] == self.N else x
 
+    def col_index(self, name: str) -> np.ndarray:
+        """Reduced-column indices of a named variable in the solution vector
+        (for callers that address specific coordinates, e.g. the market
+        layer's commitment penalties and branch flows)."""
+        vm = self._vars[name]
+        full = np.arange(vm.start, vm.start + vm.size)
+        red = np.searchsorted(self._keep_cols, full)
+        if red.max(initial=-1) >= len(self._keep_cols) or np.any(
+            self._keep_cols[red] != full
+        ):
+            raise ValueError(f"variable {name!r} has fixed (presolved) columns")
+        return red
+
     def extract(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """Pull a named variable's values out of a solution vector (batched ok)."""
         x = self._full(x)

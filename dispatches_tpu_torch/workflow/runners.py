@@ -6,6 +6,8 @@
         --ratio 0.1 0.25 0.5 --duration 2 4 8 --out batt.bin
     python -m dispatches_tpu_torch.workflow.runners yearsweep \
         --scenarios 16 --batch 8 --out year.bin
+    python -m dispatches_tpu_torch.workflow.runners doubleloop \
+        --days 2 --out results.csv
 
 Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
 Sweeps checkpoint converged points to the ResultStore (``--out`` /
@@ -16,7 +18,10 @@ re-run (the reference's `result_*.json` skip idiom,
 batch), ``--adaptive`` (converged lanes retire and the batch compacts,
 `runtime/adaptive.py`) and ``--remedy`` (the remediation ladder on
 unhealthy lanes, `runtime/remedy.py`; needs ``--adaptive``); none of them
-changes the store keys.
+changes the store keys. ``doubleloop`` runs the double-loop
+co-simulation on the bundled 5-bus network (`run_double_loop`): the
+optimizing RUC, the day-ahead batch and every SCED and tracking LP solve
+on the card.
 
 Observability, as in the JAX package: ``--journal PATH`` appends a JSONL
 run journal (manifest, spans, solve events; read it with
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import sys
 import time
 from typing import List, Optional
@@ -46,6 +52,7 @@ from ..obs import recorder as obs_recorder
 from ..obs.journal import get_tracer
 from ..runtime.native import ResultStore
 from ..solvers.ipm import _reject_deferred
+from .options import SimulationOptions
 
 TOPOLOGIES = ("wind_battery", "wind_pem", "wind_pem_tank_turbine")
 
@@ -507,6 +514,87 @@ def run_year_sweep(
     return out
 
 
+def run_double_loop(
+    opts: Optional[SimulationOptions] = None,
+    out_csv: Optional[str] = None,
+    verbose: bool = True,
+    tracer=None,
+    device="cuda",
+):
+    """Double-loop co-simulation on the network market (the
+    `run_double_loop_PEM.py:39-211` analogue, fully in-framework): a
+    wind + PEM participant bids into the 5-bus RUC / SCED market and
+    tracks its dispatch. The JAX package's `run_double_loop`, with every
+    solve on `device`."""
+    from ..market import (
+        DoubleLoopCoordinator,
+        PerfectForecaster,
+        PEMParametrizedBidder,
+        ProductionCostSimulator,
+        RenewableGeneratorModelData,
+        Tracker,
+        load_rts_format,
+    )
+    from ..market.double_loop import MultiPeriodWindPEM
+    from .postprocess import results_to_csv, summarize_revenue
+
+    opts = opts or SimulationOptions()
+    grid = load_rts_format(opts.data_path) if opts.data_path else load_rts_format()
+
+    wind_cfs = np.clip(grid.da_renewables[:, 0] / max(
+        u.p_max for u in grid.renewable
+    ), 0.0, 1.0)
+    gen = opts.bidding_generator or grid.renewable[0].name
+    md = RenewableGeneratorModelData(
+        gen_name=gen, bus=str(grid.buses[0]), p_min=0.0, p_max=50.0
+    )
+    fc = PerfectForecaster({f"{gen}-DACF": wind_cfs, f"{gen}-RTCF": wind_cfs})
+    mp = MultiPeriodWindPEM(
+        model_data=md,
+        wind_capacity_factors=wind_cfs,
+        wind_pmax_mw=50,
+        pem_pmax_mw=10,
+    )
+    bidder = PEMParametrizedBidder(
+        mp,
+        day_ahead_horizon=min(opts.day_ahead_horizon, 24),
+        real_time_horizon=opts.real_time_horizon,
+        forecaster=fc,
+        pem_marginal_cost=25.0,
+        pem_mw=10,
+    )
+    tracker = Tracker(
+        mp,
+        tracking_horizon=opts.tracking_horizon,
+        n_tracking_hour=opts.n_tracking_hour,
+        device=device,
+    )
+    coord = DoubleLoopCoordinator(bidder, tracker)
+    sim = ProductionCostSimulator(
+        grid,
+        participant_segments=opts.participant_segments,
+        participant_bus=opts.participant_bus,
+        device=device,
+    )
+    tracer = tracer if tracer is not None else get_tracer()
+    with tracer.span("double_loop", days=opts.num_days):
+        results = sim.simulate(
+            n_days=opts.num_days,
+            coordinator=coord,
+            tracking_horizon=opts.tracking_horizon,
+        )
+    if out_csv:
+        results_to_csv(results, out_csv)
+    summary = summarize_revenue(
+        results, lmp_key=f"LMP bus{grid.buses[0]}",
+        dispatch_key="Participant [MW]",
+    )
+    tracer.event("double_loop_summary", **summary)
+    if verbose:
+        print(json.dumps(summary))
+    return results, summary
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="dispatches-tpu-torch")
     p.add_argument("--device", default="cuda",
@@ -535,6 +623,13 @@ def main(argv=None):
     pt.add_argument("--hours", type=int, default=168)
     pt.add_argument("--h2-price", type=float, nargs="+", default=[2.0])
     pt.add_argument("--out", default=None, help="ResultStore checkpoint path")
+
+    dl = sub.add_parser("doubleloop", help="double-loop co-simulation")
+    dl.add_argument("--days", type=int, default=2)
+    dl.add_argument("--config", default=None, help="SimulationOptions JSON")
+    dl.add_argument("--out", default=None, help="results CSV path")
+    dl.add_argument("--device", default=argparse.SUPPRESS,
+                    help="as the global --device (default: cuda)")
 
     bs = sub.add_parser("battsweep", help="battery ratio x duration sizing sweep")
     bs.add_argument("--ratio", type=float, nargs="+", default=[0.1, 0.25, 0.5])
@@ -592,6 +687,11 @@ def main(argv=None):
                     topology=args.topology, hours=args.hours, h2_prices=args.h2_price,
                     store_path=args.out, device=args.device,
                 )
+            elif args.cmd == "doubleloop":
+                opts = (SimulationOptions.load(args.config) if args.config
+                        else SimulationOptions(num_days=args.days))
+                opts.num_days = args.days
+                run_double_loop(opts, out_csv=args.out, device=args.device)
             elif args.cmd == "battsweep":
                 run_battery_ratio_sweep(
                     ratios=args.ratio, durations=args.duration, hours=args.hours,

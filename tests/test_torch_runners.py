@@ -86,6 +86,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for name in ("torch_replay_solve", "torch_serve_dispatch", "torch_loadgen")
     ]
     assert len(sources) > 10
+    found = {p.relative_to(ROOT).as_posix() for p in sources}
+    for name in ("__init__", "network", "contingency", "tracker", "coordinator", "stochastic",
+                 "double_loop", "bidder", "forecaster", "simulator", "model_data"):
+        assert f"dispatches_tpu_torch/market/{name}.py" in found, name
+    for name in ("options", "postprocess", "rts_gmlc", "workflow", "runners"):
+        assert f"dispatches_tpu_torch/workflow/{name}.py" in found, name
     bad = re.compile(
         r"^\s*(?:import|from)\s+jax\b"  # jax itself
         r"|^\s*(?:import|from)\s+dispatches_tpu\b"  # the JAX package ...
