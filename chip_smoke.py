@@ -6,12 +6,14 @@
     python3 chip_smoke.py --phases pdhg    # the PDHG lane alone
     python3 chip_smoke.py --phases serve   # the serving tier alone
     python3 chip_smoke.py --phases market  # the market layer and double loop alone
+    python3 chip_smoke.py --phases plants  # the steam cycles and the NLP lane alone
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
 limit (`PHASE_LIMITS_S`) turns a hang into a failure):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile csrc/chain_sweep.cu with nvcc, print the seconds
+  2. build    compile csrc/chain_sweep.cu and csrc/tes_chain.cu with nvcc
+              (one process each, started together), print the seconds
   3. kernel   the chain-sweep kernel against its plain PyTorch version on
               the card at 14 (chains, steps, m, k) shapes, both sweep
               directions, factors in the padded layout the kernel streams
@@ -224,6 +226,50 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   profit above 1.02 x the parametrized. Printed: walls, the
                   ms of one scenario LP.
               The gates are raised at the phase's end.
+ 11. plants   the steam cycles and the NLP lane on the card (NLPs, square
+              solves, dense LPs and the tube-side chain kernel; chain_sweep's
+              launches are read, 0); the CPU reference of (c)'s gradient runs
+              in a child process beside the card's work, on two cores of
+              its own:
+              (a) `tests/test_nlp.py`'s problems and square solves, then a
+                  `solve_nlp_batch` of 64 seeded HS071-style lanes, on the
+                  card and on the CPU: the same converged flags, x within
+                  rel 1e-8. Printed: iterations, lanes whose iterations
+                  differ from the CPU's, ms and launches per iteration;
+              (b) the USC cycle: design (436.466 MW rel 2e-4), 300 MW
+                  (flow 12,474.473 rel 5e-4), 27 MPa (446.15 MW rel 2e-3,
+                  940.4 MWth rel 1e-3), `derive_performance_map` at
+                  `tests/test_usc_nlp.py`'s bounds; Newton iterations,
+                  residual and wall of each solve;
+              (c) concrete TES at the reference geometry (10,000 tubes, 20
+                  segments, 2 periods, 48 bisections, 30 Gauss-Seidel
+                  iterations) through the kernel: the charge, discharge and
+                  combined goldens of `tests/test_concrete_tes.py` at its
+                  tolerances; the kernel against `_tes_chain_plain` on the
+                  card on the combined hour's first pass (h_out within 1e-9
+                  of each segment's starting bracket, weights equal where
+                  the outlets agree), times a pass and an hour beside the
+                  throughput bound and the dependent chain's latency bound
+                  (from `tools/latency_probe.cu`'s measured latencies); the
+                  stored-energy gradient in the charge flow:
+                  finite, > 0, within rel 1e-6 of the CPU child's;
+              (d) SCPC: design 692 +- 1 MW, `solve_scpc_with_tes` 625 +- 1
+                  MW, with the TES hour's wall;
+              (e) Rankine: `tests/test_rankine.py`'s two 6-scenario cases
+                  with its assertions; N = 168 (rts303's first week of DA
+                  LMPs, weights 8760/168): converged, KKT error under tol,
+                  objective within rel 1e-6 of the port's CPU run;
+                  iterations, wall, launches an iteration, device busy;
+              (f) `run_all_tank_scenarios(ndays=7)` (3 lanes x 168 h, one
+                  batch), each profit within rel 1e-6 of HiGHS;
+                  `run_pricetaker_analysis` over rts303's first week
+                  against HiGHS; `solve_superstructure` charge and
+                  discharge: the CPU run's best leaf, every leaf's net
+                  value within rel 1e-6; `MultiPeriodUsc` through the
+                  port's `Tracker` (horizon 4, 1 hour implemented) for 24
+                  hourly solves following a feasible dispatch, hours 0
+                  and 12 against HiGHS.
+              The gates are raised at the phase's end.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -234,6 +280,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -276,12 +323,49 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dispatches_tpu_torch import _nvcc
     from dispatches_tpu_torch.solvers import chain_sweep as cs
+    from dispatches_tpu_torch.units import concrete_tes as tes
 
     t0 = time.perf_counter()
-    path = cs.build(verbose=True)
+    with ThreadPoolExecutor(3) as pool:  # one nvcc a source, started together
+        builds = [pool.submit(mod.build, verbose=True) for mod in (cs, tes)]
+        builds.append(pool.submit(_nvcc.build, LATENCY_PROBE))
+        paths = [b.result() for b in builds]
     cs._library()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+    tes._library()
+    log(f"[build] {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s")
+
+
+LATENCY_PROBE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                             "latency_probe.cu")
+
+
+def _latency_ns(k=1 << 18):
+    """Dependent latency [ns] of an f64 division, of one level of the warp
+    butterfly (shuffle + add) and of an f64 add, at the card's running
+    clock: `tools/latency_probe.cu`, k dependent repetitions in one warp."""
+    import ctypes
+
+    from dispatches_tpu_torch import _nvcc
+
+    lib = ctypes.CDLL(str(_nvcc.build(LATENCY_PROBE)))
+    lib.latency_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                  ctypes.c_void_p, ctypes.c_void_p]
+    lib.latency_probe.restype = ctypes.c_int
+    out = torch.empty(32, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ns = {}
+    for op, name, d in ((0, "div", 1.5), (1, "shfl_add", 0.0), (2, "add", 0.0)):
+        if lib.latency_probe(op, 1024, d, out.data_ptr(), stream) != 0:
+            raise RuntimeError(f"latency probe {name} did not launch")
+        ms = _time_ms(lambda: lib.latency_probe(op, k, d, out.data_ptr(), stream), 3)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"latency probe {name}: non-finite result")
+        ns[name] = ms * 1e6 / k
+    return ns
 
 
 def _chains(D, S, m, gen):
@@ -2666,11 +2750,616 @@ def phase_market():
     return dict(doubleloop=dl, network=net, contingency=ctg, stochastic=sto, launches=launches)
 
 
+_PLANTS_FAILS = []
+PLANTS_DEVICE = "cuda"  # the CPU rehearses the phase with "cpu" (and cuda calls stubbed)
+F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores, published
+# the reference's TES goldens and inlet specs (`tests/test_concrete_tes.py`)
+TES_GOLDENS = ("INIT_T", "EXP_CHARGE_WALL_P1", "EXP_CHARGE_WALL_P2", "EXP_CHARGE_FLUID_P1",
+               "EXP_CHARGE_HEAT_P1", "EXP_DISCHARGE_WALL_P1", "EXP_DISCHARGE_FLUID_P1",
+               "EXP_COMBINED_WALL_P1", "EXP_COMBINED_WALL_P2")
+TES_CHARGE = (0.00958 * 1000 / 18.01528 * 1e4, 19.6e6, 865.0)
+TES_DISCHARGE = (3 / 18.01528 * 1e4, 8.5e5, 355.0)
+TES_GRAD_FLOW = 5317.0  # `tests/test_concrete_tes.py:178`
+
+
+def _plants_fail(msg):
+    """A failed gate of the plants phase: logged now, raised at its end."""
+    log(f"[plants] GATE FAILED: {msg}")
+    _PLANTS_FAILS.append(msg)
+
+
+def _tes_goldens():
+    """The golden arrays of `tests/test_concrete_tes.py`, read from its
+    source (numpy expressions of literals; the file itself imports JAX)."""
+    import ast
+
+    path = os.path.join(ROOT, "tests", "test_concrete_tes.py")
+    tree = ast.parse(open(path).read())
+    out = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) in TES_GOLDENS):
+            expr = compile(ast.Expression(node.value), path, "eval")
+            out[node.targets[0].id] = np.asarray(eval(expr, {"np": np}), dtype=float)
+    missing = set(TES_GOLDENS) - set(out)
+    if missing:
+        raise AssertionError(f"TES goldens not found in {path}: {sorted(missing)}")
+    return out
+
+
+def _tes_stored_gradient(device):
+    """The charge-mode hour's stored energy at the reference geometry and
+    its derivative in the charge flow (`tests/test_concrete_tes.py:170-180`)."""
+    from dispatches_tpu_torch.units.concrete_tes import ConcreteTES, TESDesign, stream_from_pt
+
+    init = torch.tensor(_tes_goldens()["INIT_T"], dtype=torch.float64, device=device)
+    flow = torch.tensor(TES_GRAD_FLOW, dtype=torch.float64, device=device, requires_grad=True)
+    res = ConcreteTES(TESDesign(), mode="charge").hour(
+        init, charge=stream_from_pt(flow, TES_CHARGE[1], TES_CHARGE[2]))
+    stored = torch.sum(res.wall_temp[-1] - init)
+    (g,) = torch.autograd.grad(stored, flow)
+    return float(stored.detach()), float(g)
+
+
+def _cpu_tes_gradient(out_path):
+    """`--cpu-tes-gradient`: the port's CPU value of `_tes_stored_gradient`
+    (the plain chain), written as JSON; run as a child of the plants phase,
+    on the cores that `_start_cpu_tes_gradient` gives it."""
+    cores = os.environ.get("PLANTS_CHILD_CORES")
+    if cores:
+        _pin({int(c) for c in cores.split(",")})
+    t0 = time.perf_counter()
+    stored, grad = _tes_stored_gradient("cpu")
+    with open(out_path, "w") as f:
+        json.dump({"stored": stored, "grad": grad, "seconds": time.perf_counter() - t0}, f)
+
+
+def _nlp_problems():
+    """`tests/test_nlp.py`'s problems: (f, c, x0, l, u, max_iter)."""
+    inf = float("inf")
+
+    def none(x, p):
+        return x[:0]
+
+    return {
+        "rosenbrock": (lambda x, p: (1 - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2, none,
+                       [-1.2, 1.0], [-inf], [inf], 200),
+        "hs006": (lambda x, p: (1 - x[0]) ** 2,
+                  lambda x, p: torch.stack([10.0 * (x[1] - x[0] ** 2)]),
+                  [-1.2, 1.0], [-inf], [inf], 200),
+        "bounds_active": (lambda x, p: (x[0] - 2.0) ** 2, none, [0.0], [-inf], [1.0], 100),
+        "hs071_param": (
+            lambda x, p: x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2],
+            lambda x, p: torch.stack([x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2 - 40.0,
+                                      x[0] * x[1] * x[2] * x[3] - x[4]]),
+            [1.0, 5.0, 5.0, 1.0, 25.0], [1.0, 1, 1, 1, 25], [5.0, 5, 5, 5, inf], 300),
+        "fixed_equal_bounds": (lambda x, p: (x[1] - 3.0) ** 2 + x[0] * x[1], none,
+                               [1.0, 0.0], [1.0, -inf], [1.0, inf], 100),
+    }
+
+
+def _x_close(got, ref, rtol=1e-8):
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return bool(((got - ref).abs() <= rtol * torch.clamp(ref.abs(), min=1.0)).all())
+
+
+def _plants_nlp():
+    """(a) the NLP lane on the card against the port's CPU run."""
+    from dispatches_tpu_torch.solvers.nlp import solve_nlp, solve_nlp_batch, solve_square
+
+    f64 = torch.float64
+    for name, (f, c, x0, l, u, mi) in _nlp_problems().items():
+        sols = {}
+        for dev in (PLANTS_DEVICE, "cpu"):
+            t = lambda v, d=dev: torch.tensor(v, dtype=f64, device=d)  # noqa: E731
+            sols[dev] = solve_nlp(f, c, t(x0), t(l), t(u), tol=1e-8, max_iter=mi)
+        g, r = sols[PLANTS_DEVICE], sols["cpu"]
+        log(f"[plants] (a) {name}: converged {bool(g.converged)} / cpu {bool(r.converged)}, "
+            f"iterations {int(g.iterations)} / cpu {int(r.iterations)}, kkt {float(g.kkt_error):.2e}")
+        if bool(g.converged) != bool(r.converged) or not bool(g.converged):
+            _plants_fail(f"(a) {name}: converged {bool(g.converged)}, cpu {bool(r.converged)}")
+        if not _x_close(g.x, r.x):
+            _plants_fail(f"(a) {name}: x {g.x.tolist()} vs cpu {r.x.tolist()} beyond rel 1e-8")
+
+    squares = {
+        "mixing": (lambda x, q: torch.stack([x[0] - (q[0] + q[2]),
+                                             x[0] * x[1] - (q[0] * q[1] + q[2] * q[3])]),
+                   [1.0, 350.0], [2.0, 300.0, 1.0, 450.0], 50),
+        "damped_exp": (lambda x, q: torch.exp(x) - 2.0, [10.0], None, 100),
+    }
+    for name, (F, x0, p, mi) in squares.items():
+        sols = {dev: solve_square(F, torch.tensor(x0, dtype=f64, device=dev),
+                                  None if p is None else torch.tensor(p, dtype=f64, device=dev),
+                                  max_iter=mi)
+                for dev in (PLANTS_DEVICE, "cpu")}
+        g, r = sols[PLANTS_DEVICE], sols["cpu"]
+        log(f"[plants] (a) square {name}: converged {bool(g.converged)}, iterations "
+            f"{int(g.iterations)} / cpu {int(r.iterations)}, x {g.x.tolist()}")
+        if not (bool(g.converged) and bool(r.converged)) or not _x_close(g.x, r.x):
+            _plants_fail(f"(a) square {name}: {g.x.tolist()} vs cpu {r.x.tolist()}")
+
+    # 64 seeded HS071-style lanes (the sphere constraint's radius varies)
+    f, _, x0, l, u, _ = _nlp_problems()["hs071_param"]
+
+    def c(x, p):
+        return torch.stack([x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2 - p,
+                            x[0] * x[1] * x[2] * x[3] - x[4]])
+
+    rad = np.random.default_rng(0).uniform(30.0, 45.0, 64)
+
+    def batch(dev, max_iter=300):
+        t = lambda v: torch.tensor(np.asarray(v), dtype=f64, device=dev)  # noqa: E731
+        return solve_nlp_batch(f, c, t(np.tile(x0, (64, 1))), t(l), t(u), params_batch=t(rad),
+                               tol=1e-8, max_iter=max_iter)
+
+    batch(PLANTS_DEVICE)  # warm the card's libraries
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = batch(PLANTS_DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = batch("cpu")
+    it_g, it_r = g.iterations.cpu().numpy(), r.iterations.numpy()
+    loops = int(it_g.max())
+    # a profiled window of the first 8 iterations (all 64 lanes live)
+    prof = _profile_single_lps([lambda: batch(PLANTS_DEVICE, max_iter=8)])
+    differ = int((it_g != it_r).sum())
+    log(f"[plants] (a) 64-lane batch: converged {int(g.converged.sum())}/64 (cpu "
+        f"{int(r.converged.sum())}), iterations {int(it_g.min())}..{loops}, lanes whose "
+        f"iterations differ from the CPU's: {differ}, wall {wall:.3f} s, "
+        f"{wall / loops * 1e3:.2f} ms per loop iteration; profiled 8 iterations: "
+        f"{prof['launches'] / 8:.0f} launches and {prof['scalar_reads'] / 8:.1f} scalar reads "
+        f"an iteration, device busy {prof['device_busy']:.3f}")
+    if not torch.equal(g.converged.cpu(), r.converged) or not bool(g.converged.all()):
+        _plants_fail("(a) 64-lane batch: converged flags differ from the CPU's or a lane failed")
+    if not _x_close(g.x, r.x):
+        _plants_fail("(a) 64-lane batch: x beyond rel 1e-8 of the CPU's")
+    return dict(batch_wall_s=wall, batch_loops=loops, lanes_iterations_differ=differ,
+                ms_per_iteration=wall / loops * 1e3,
+                launches_per_iteration=prof["launches"] / 8,
+                device_busy=prof["device_busy"])
+
+
+def _square_patches(*mods):
+    return [(m, "solve_square", lambda a, kw, m=m: m.__name__.rsplit(".", 1)[-1]) for m in mods]
+
+
+def _plants_usc():
+    """(b) the USC cycle's three goldens and the performance map."""
+    from dispatches_tpu_torch.case_studies.fossil import usc_nlp as U
+
+    clock = _Clock()
+    out = {}
+    with _timed(clock, _square_patches(U)):
+        for tag, fn in (
+            ("design", lambda: U.solve_usc_cycle(device=PLANTS_DEVICE)),
+            ("power_300", lambda: U.solve_usc_for_power(300.0, device=PLANTS_DEVICE)),
+            ("pressure_27", lambda: U.solve_usc_cycle(P_main=27e6, device=PLANTS_DEVICE)),
+            ("map", lambda: U.derive_performance_map(points=(0.65, 1.0), device=PLANTS_DEVICE)),
+        ):
+            n0 = clock.n.get("usc_nlp", 0)
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sols = [rec[2] for rec in clock.calls.get("usc_nlp", [])[n0:]]
+            its = [int(s.iterations) for s in sols]
+            resid = max(float(s.kkt_error) for s in sols)
+            out[tag] = dict(wall_s=wall, solves=len(sols), newton_iterations=its, residual=resid)
+            log(f"[plants] (b) USC {tag}: {len(sols)} cycle solves, Newton iterations {its}, "
+                f"residual {resid:.2e}, wall {wall:.2f} s")
+            if tag == "design":
+                if not (float(res.residual) < 1e-8 and abs(float(res.power_mw) / 436.466 - 1) <= 2e-4):
+                    _plants_fail(f"(b) design: {float(res.power_mw)} MW (436.466 rel 2e-4)")
+                log(f"[plants] (b) design power {float(res.power_mw):.4f} MW (golden 436.466)")
+            elif tag == "power_300":
+                flow, s = res
+                log(f"[plants] (b) 300 MW: flow {flow:.3f} mol/s (golden 12,474.473), "
+                    f"power {float(s.power_mw):.5f}")
+                if not (abs(float(s.power_mw) - 300.0) <= 1e-3 and abs(flow / 12474.473 - 1) <= 5e-4):
+                    _plants_fail(f"(b) 300 MW: flow {flow}, power {float(s.power_mw)}")
+            elif tag == "pressure_27":
+                p, d = float(res.power_mw), float(res.heat_duty_mw)
+                log(f"[plants] (b) 27 MPa: {p:.3f} MW (446.15 rel 2e-3), duty {d:.2f} (940.4 rel 1e-3)")
+                if not (float(res.residual) < 1e-8 and abs(p / 446.15 - 1) <= 2e-3
+                        and abs(d / 940.4 - 1) <= 1e-3):
+                    _plants_fail(f"(b) 27 MPa: {p} MW, {d} MWth")
+            else:
+                from dispatches_tpu_torch.case_studies.fossil.usc_plant import (
+                    NLP_DESIGN_DUTY_MW, NLP_DESIGN_POWER_MW, NLP_DUTY_SLOPE, plant_heat_duty_mw,
+                )
+
+                ok = (abs(res["max_power_mw"] / 436.466 - 1) <= 2e-4
+                      and 2.0 < res["duty_slope"] < 2.3
+                      and abs(res["max_power_mw"] / NLP_DESIGN_POWER_MW - 1) <= 1e-4
+                      and abs(res["max_duty_mw"] / NLP_DESIGN_DUTY_MW - 1) <= 2e-3
+                      and abs(res["duty_slope"] / NLP_DUTY_SLOPE - 1) <= 5e-2
+                      and all(abs(float(plant_heat_duty_mw(p)) / d - 1) <= 0.05
+                              for p, d in zip(res["powers"], res["duties"])))
+                log(f"[plants] (b) map: max {res['max_power_mw']:.3f} MW / {res['max_duty_mw']:.2f} "
+                    f"MWth, slope {res['duty_slope']:.4f}, intercept {res['duty_intercept']:.2f}")
+                if not ok:
+                    _plants_fail(f"(b) performance map outside tests/test_usc_nlp.py's bounds: {res}")
+    return out
+
+
+def _tes_pass_inputs(walls, specs):
+    """The chain kernel's inputs of one fluid pass (one lane a side)."""
+    from dispatches_tpu_torch.properties import steam
+    from dispatches_tpu_torch.units.concrete_tes import TESDesign, _side, stream_from_pt
+
+    d = TESDesign()
+    sides = [_side(d, stream_from_pt(*[torch.tensor(v, dtype=torch.float64, device=PLANTS_DEVICE)
+                                       for v in spec]), mode) for spec, mode in specs]
+    tw = torch.stack([walls.flip(-1) if s.reverse else walls for s in sides]).contiguous()
+    h_eq = steam.enthalpy_pt(torch.stack([s.P for s in sides])[:, None], tw).contiguous()
+    par = torch.stack([torch.stack([s.h_in0, s.c, s.P, *s.sat]) for s in sides]).contiguous()
+    return tw, h_eq, par
+
+
+def _plants_tes(grad_child):
+    """(c) the concrete store at the reference geometry through the kernel."""
+    from dispatches_tpu_torch.properties.steam import sat_temperature
+    from dispatches_tpu_torch.units.concrete_tes import (
+        ConcreteTES, TESDesign, _tes_chain_plain, stream_from_pt, tes_chain,
+    )
+
+    gold = _tes_goldens()
+    dev = dict(dtype=torch.float64, device=PLANTS_DEVICE)
+    init = torch.tensor(gold["INIT_T"], **dev)
+    D = TESDesign()
+
+    def stream(spec):
+        return stream_from_pt(*[torch.tensor(v, **dev) for v in spec])
+
+    def hour(mode, **streams):
+        t0 = time.perf_counter()
+        res = ConcreteTES(D, mode=mode).hour(init, **streams)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def near(got, want, atol, rtol=0.0, tag=""):
+        got = got.detach().cpu().numpy()
+        err = float(np.max(np.abs(got - want) - rtol * np.abs(want)))
+        if not err <= atol:
+            _plants_fail(f"(c) {tag}: off the golden by {err + atol:.3g} (atol {atol}, rtol {rtol})")
+        return float(np.max(np.abs(got - want)))
+
+    n0 = tes_chain.launches
+    res, wall_c = hour("charge", charge=stream(TES_CHARGE))
+    hour_launches = tes_chain.launches - n0
+    e = [near(res.wall_temp[0], gold["EXP_CHARGE_WALL_P1"], 0.1, tag="charge wall P1"),
+         near(res.wall_temp[1], gold["EXP_CHARGE_WALL_P2"], 0.1, tag="charge wall P2"),
+         near(res.charge_temp[0], gold["EXP_CHARGE_FLUID_P1"], 0.1, tag="charge fluid P1"),
+         near(res.heat_rate[0], gold["EXP_CHARGE_HEAT_P1"], 0.5, 2e-3, tag="charge heat P1")]
+    t_out, t_sat = float(res.charge_temp[-1, -1]), float(sat_temperature(19.6e6))
+    if abs(t_out - t_sat) > 0.01:
+        _plants_fail(f"(c) charge outlet {t_out} K, T_sat {t_sat} K")
+    log(f"[plants] (c) charge hour: {wall_c:.3f} s, {hour_launches} kernel launches, "
+        f"max |err| vs goldens {max(e):.4f}")
+    res, wall_d = hour("discharge", discharge=stream(TES_DISCHARGE))
+    e = [near(res.wall_temp[0], gold["EXP_DISCHARGE_WALL_P1"], 0.1, tag="discharge wall P1"),
+         near(res.discharge_temp[0], gold["EXP_DISCHARGE_FLUID_P1"], 0.1, tag="discharge fluid P1")]
+    if not bool((res.heat_rate < 0).all()):
+        _plants_fail("(c) discharge: a heat rate is not negative")
+    log(f"[plants] (c) discharge hour: {wall_d:.3f} s, max |err| vs goldens {max(e):.4f}")
+    n0 = tes_chain.launches
+    res, wall_m = hour("combined", charge=stream(TES_CHARGE), discharge=stream(TES_DISCHARGE))
+    combined_launches = tes_chain.launches - n0
+    e = [near(res.wall_temp[0], gold["EXP_COMBINED_WALL_P1"], 0.1, tag="combined wall P1"),
+         near(res.wall_temp[1], gold["EXP_COMBINED_WALL_P2"], 0.1, tag="combined wall P2")]
+    if abs(float(res.discharge_temp[0, 0]) - 750.64) > 0.5:
+        _plants_fail(f"(c) combined discharge outlet {float(res.discharge_temp[0, 0])} K (750.64 +- 0.5)")
+    log(f"[plants] (c) combined hour: {wall_m:.3f} s, {combined_launches} kernel launches "
+        f"(both sides a launch), max |err| vs goldens {max(e):.4f}")
+    small = (TES_DISCHARGE[0] * 0.01 / 3, *TES_DISCHARGE[1:])
+    res, _ = hour("combined", charge=stream(TES_CHARGE), discharge=stream(small))
+    w = res.wall_temp.cpu().numpy()
+    if not (np.all(np.isfinite(w)) and np.max(np.abs(w[0] - gold["EXP_CHARGE_WALL_P1"])) <= 5.0):
+        _plants_fail("(c) combined with a near-zero discharge: walls off the charge-only solution")
+
+    t0 = time.perf_counter()
+    stored, grad = _tes_stored_gradient(PLANTS_DEVICE)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    main_launches = tes_chain.launches
+
+    # the kernel against the plain chain on identical inputs: the combined
+    # hour's first pass (two lanes); these launches are not the main path's
+    tw, h_eq, par = _tes_pass_inputs(init, [(TES_CHARGE, "charge"), (TES_DISCHARGE, "discharge")])
+    got, a = tes_chain(tw, h_eq, par)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, a_ref = _tes_chain_plain(tw, h_eq, par)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # the Newton steps this data needs, per lane, counted by a CPU replay of the chain
+    _, _, (n_liq, n_vap) = _tes_chain_plain(tw.cpu(), h_eq.cpu(), par.cpu(), count=True)
+    lat_ns = _latency_ns()
+    h_in = torch.cat([par[:, :1], ref[:, :-1]], -1)
+    width = (h_in - h_eq).abs()
+    err = (got - ref).abs()
+    max_err = float(err.max())
+    rel_w = float((err / torch.clamp(width, min=1e-300)).max())
+    same = got == ref
+    # where the outlets agree the paths agree, but for the last halvings,
+    # whose bracket is narrower than an ulp of h (the weight moves by 2^-k)
+    a_diff = float((a[same] - a_ref[same]).abs().max()) if bool(same.any()) else 0.0
+    a_ok = a_diff <= 1e-9
+    if not bool((err <= 1e-9 * width).all()):
+        _plants_fail(f"(c) kernel vs plain: h_out off by {rel_w:.2e} of the bracket (1e-9)")
+    if not a_ok:
+        _plants_fail(f"(c) kernel vs plain: weights {a_diff:.2e} apart where the outlets agree")
+    ms = _time_ms(lambda: tes_chain(tw, h_eq, par), 20)
+    on_plateau = (ref > par[:, 4:5]) & (ref < par[:, 5:6])
+    # the throughput bound: a Newton step's operations are, per term of the
+    # two tau-derivative sums, two powers, two products and two adds (region
+    # 1: 34 terms, region 2: 43 + 9), and ~12 for tau, the enthalpy, cp and
+    # the update
+    flops = int(n_liq.sum()) * (6 * 34 + 12) + int(n_vap.sum()) * (6 * 52 + 12)
+    steps = int((n_liq + n_vap).sum())
+    bound_ops = flops / F64_FLOPS_PER_S * 1e3
+    bytes_moved = 8 * (tw.numel() + h_eq.numel() + par.numel() + 2 * got.numel())
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound, by = (bound_ops, "operations") if bound_ops >= bound_bytes else (bound_bytes, "bytes")
+    # the latency bound of the dependent chain: the lanes run side by side,
+    # so the longest lane's Newton steps, each at least its shortest
+    # dependent path in the kernel: tau = T*/T (a division), one 5-level
+    # shuffle-add butterfly (the two sums reduce side by side), the update's
+    # division and its add. The powers, products, clamps and the bisection's
+    # own steps are left out, so the bound is low.
+    path_steps = int((n_liq + n_vap).max())
+    step_ns = 2 * lat_ns["div"] + 5 * lat_ns["shfl_add"] + lat_ns["add"]
+    latency_bound = path_steps * step_ns * 1e-6
+    passes = combined_launches
+    log(f"[plants] (c) kernel vs plain (2 lanes x 20 segments): max |h_out diff| {max_err:.3e} J/kg "
+        f"({rel_w:.2e} of the bracket), bitwise-equal outlets {int(same.sum())}/{same.numel()}, "
+        f"weights there within {a_diff:.2e} (1e-9), bitwise {bool(torch.equal(a[same], a_ref[same]))}; "
+        f"outlets on the plateau {int(on_plateau.sum())}")
+    log(f"[plants] (c) tes_chain: {ms:.3f} ms a pass ({ms * passes:.1f} ms of kernel an hour at "
+        f"{passes} launches); plain {plain_ms:.1f} ms a pass ({plain_ms * passes / 1e3:.1f} s an "
+        f"hour, {passes} x the pass); throughput bound {bound:.5f} ms ({by}: {steps} Newton "
+        f"steps ({int(n_liq.sum())} region 1, {int(n_vap.sum())} region 2), {flops} flops "
+        f"at the f64 rate; {bytes_moved} bytes); latency bound {latency_bound:.4f} ms "
+        f"({path_steps} Newton steps on the longest lane x {step_ns:.1f} ns: division "
+        f"{lat_ns['div']:.2f}, shuffle + add {lat_ns['shfl_add']:.2f}, add {lat_ns['add']:.2f} "
+        f"ns, measured), share {latency_bound / ms:.3f}; {ms * 1e6 / path_steps:.0f} ns a "
+        f"dependent Newton step; library: none")
+
+    tes_chain.launches = main_launches
+    t0 = time.perf_counter()
+    rc = grad_child["proc"].wait(timeout=PHASE_LIMITS_S["plants"])
+    if rc != 0:
+        raise RuntimeError(f"(c) the CPU gradient child exited with {rc}")
+    with open(grad_child["path"]) as fh:
+        cpu = json.load(fh)
+    log(f"[plants] (c) waited {time.perf_counter() - t0:.1f} s for the CPU child")
+    rel = abs(grad - cpu["grad"]) / abs(cpu["grad"])
+    log(f"[plants] (c) stored-energy gradient in the charge flow: {grad:.12e} (card, {wall_g:.2f} s) "
+        f"vs {cpu['grad']:.12e} (CPU plain chain, {cpu['seconds']:.1f} s): rel {rel:.2e}; "
+        f"stored {stored:.6f} K vs {cpu['stored']:.6f}")
+    if not (np.isfinite(grad) and grad > 0 and rel <= 1e-6):
+        _plants_fail(f"(c) gradient {grad} vs CPU {cpu['grad']} (finite, > 0, rel 1e-6)")
+    return dict(hour_s={"charge": wall_c, "discharge": wall_d, "combined": wall_m},
+                launches_per_hour={"charge": hour_launches, "combined": combined_launches},
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=max_err,
+                latency_bound_ms=latency_bound, latency_ns=lat_ns, path_newton_steps=path_steps,
+                rel_of_bracket=rel_w, grad=grad, grad_cpu=cpu["grad"], grad_wall_s=wall_g)
+
+
+def _plants_scpc():
+    """(d) the SCPC cycle and the SCPC + concrete-TES golden."""
+    from dispatches_tpu_torch.case_studies.fossil import scpc_nlp as S
+    from dispatches_tpu_torch.units.concrete_tes import ConcreteTES
+
+    clock = _Clock()
+    with _timed(clock, _square_patches(S) + [(ConcreteTES, "hour", lambda a, kw: "tes_hour")]):
+        t0 = time.perf_counter()
+        s = S.solve_scpc_cycle(device=PLANTS_DEVICE)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res, tes = S.solve_scpc_with_tes(device=PLANTS_DEVICE)
+        torch.cuda.synchronize()
+        wall_tes = time.perf_counter() - t0
+    its = [int(r[2].iterations) for r in clock.calls["scpc_nlp"]]
+    log(f"[plants] (d) SCPC design: {float(s.power_mw):.3f} MW (692 +- 1), residual "
+        f"{float(s.residual):.2e}, {wall:.2f} s; with TES: {float(res.power_mw):.3f} MW "
+        f"(625 +- 1), {wall_tes:.2f} s of which the TES hour {clock.t['tes_hour']:.2f} s; "
+        f"Newton iterations {its}")
+    if not (float(s.residual) < 1e-8 and abs(float(s.power_mw) - 692.0) <= 1.0):
+        _plants_fail(f"(d) SCPC design {float(s.power_mw)} MW")
+    if not (float(res.residual) < 1e-8 and abs(float(res.power_mw) - 625.0) <= 1.0
+            and float(tes.outlet_charge.enth_mol) < 30000.0):
+        _plants_fail(f"(d) SCPC + TES {float(res.power_mw)} MW")
+    return dict(design_mw=float(s.power_mw), tes_mw=float(res.power_mw), wall_s=wall,
+                tes_wall_s=wall_tes, tes_hour_s=clock.t["tes_hour"])
+
+
+def _plants_rankine():
+    """(e) the Rankine stochastic design on the card."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.rankine import stochastic_optimization_problem as sop
+
+    res = sop(15 + 20 * np.random.default_rng(0).random(6), max_iter=120, device=PLANTS_DEVICE)
+    if not (res.converged and abs(res.p_max_mw / 10.0 - 1) <= 1e-2):
+        _plants_fail(f"(e) unprofitable prices: {res}")
+    res = sop(np.array([30.0, 60.0, 90.0, 150.0, 220.0, 300.0]), max_iter=200, device=PLANTS_DEVICE)
+    op = res.op_power_mw
+    if not (res.converged and res.p_max_mw > 50.0 and abs(op[-1] / res.p_max_mw - 1) <= 1e-2
+            and op[0] <= op[-1] + 1e-6 and np.all(op >= 0.3 * res.p_max_mw - 1e-3)):
+        _plants_fail(f"(e) profitable prices: {res}")
+    lmp = P.load_rts303()["da_lmp"][:168]
+    t0 = time.perf_counter()
+    g = sop(lmp, device=PLANTS_DEVICE)
+    wall = time.perf_counter() - t0
+    r = sop(lmp, device="cpu")
+    # one profiled iteration (the solve cut at max_iter=1: set-up and one step)
+    prof = _profile_single_lps([lambda: sop(lmp, max_iter=1, device=PLANTS_DEVICE)])
+    rel = abs(g.obj_usd - r.obj_usd) / abs(r.obj_usd)
+    log(f"[plants] (e) Rankine N=168 (rts303 week 1, weights 8760/168): converged {g.converged}, "
+        f"kkt {g.kkt_error:.2e} (tol 1e-6), {g.iterations} iterations (cpu {r.iterations}), "
+        f"P_max {g.p_max_mw:.4f} MW, objective {g.obj_usd:.6e} vs cpu {r.obj_usd:.6e} (rel "
+        f"{rel:.2e}), wall {wall:.2f} s ({wall / g.iterations * 1e3:.1f} ms an iteration); "
+        f"one profiled iteration (with the solve's set-up): {prof['launches']} launches, "
+        f"{prof['scalar_reads']} scalar reads, device busy {prof['device_busy']:.3f}")
+    if not (g.converged and g.kkt_error < 1e-6 and rel <= 1e-6):
+        _plants_fail(f"(e) N=168: converged {g.converged}, kkt {g.kkt_error}, rel {rel}")
+    return dict(iterations=g.iterations, wall_s=wall, obj_rel_cpu=rel,
+                launches_one_iteration=prof["launches"], device_busy=prof["device_busy"])
+
+
+def _highs_profit(prog, params):
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy
+
+    res = solve_lp_scipy(prog.instantiate(params, device="cpu"))
+    return float(prog.eval_expr("profit", torch.as_tensor(res.x), params))
+
+
+def _plants_dispatch():
+    """(f) the USC + storage dispatch layer on the card."""
+    from dispatches_tpu_torch.case_studies import fossil as F
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.market import Tracker
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy
+
+    out = {}
+    t0 = time.perf_counter()
+    tanks = F.run_all_tank_scenarios(ndays=7, device=PLANTS_DEVICE)
+    out["tanks_s"] = time.perf_counter() - t0
+    prog = F.build_usc_storage_model(168, periodic_inventory=False).build()
+    lmp = np.tile(F.MOD_RTS_LMP_24, 7)
+    worst = 0.0
+    for name, hot0 in F.TANK_SCENARIOS.items():
+        want = _highs_profit(prog, {"lmp": lmp, "hot0": np.asarray(hot0),
+                                    "power0": np.asarray(359.5)})
+        rel = abs(float(tanks[name]["profit"]) - want) / abs(want)
+        worst = max(worst, rel)
+        if not (tanks[name]["converged"] and rel <= 1e-6):
+            _plants_fail(f"(f) tank scenario {name}: profit rel {rel:.2e} vs HiGHS")
+    log(f"[plants] (f) 3 tank scenarios x 168 h in one batch: {out['tanks_s']:.2f} s, worst "
+        f"profit rel {worst:.2e} vs HiGHS")
+
+    da = P.load_rts303()["da_lmp"][:168]
+    t0 = time.perf_counter()
+    pt = F.run_pricetaker_analysis(ndays=7, lmp=da, device=PLANTS_DEVICE)
+    out["pricetaker_s"] = time.perf_counter() - t0
+    prog = F.build_usc_storage_model(168, periodic_inventory=True).build()
+    want = _highs_profit(prog, {"lmp": da, "hot0": np.asarray(F.TANK_SCENARIOS["hot_empty"]),
+                                "power0": np.asarray((F.usc_plant.MIN_POWER_MW + 1
+                                                      + F.usc_plant.MAX_POWER_MW) / 2.0)})
+    rel = abs(float(pt["profit"]) - want) / abs(want)
+    log(f"[plants] (f) price-taker, rts303 week 1: profit {float(pt['profit']):.2f} vs HiGHS "
+        f"{want:.2f} (rel {rel:.2e}), {out['pricetaker_s']:.2f} s")
+    if not (pt["converged"] and rel <= 1e-6):
+        _plants_fail(f"(f) price-taker: rel {rel:.2e} vs HiGHS")
+
+    for mode in ("charge", "discharge"):
+        t0 = time.perf_counter()
+        g = F.solve_superstructure(mode, device=PLANTS_DEVICE)
+        wall = time.perf_counter() - t0
+        r = F.solve_superstructure(mode, device="cpu")
+        rel = max(abs(a.net_annual_value - b.net_annual_value) / abs(b.net_annual_value)
+                  for a, b in zip(g["leaves"], r["leaves"]))
+        same = (g["best"].fluid, g["best"].steam_leg) == (r["best"].fluid, r["best"].steam_leg)
+        log(f"[plants] (f) superstructure {mode}: best {g['best'].fluid}/{g['best'].steam_leg} "
+            f"(cpu {r['best'].fluid}/{r['best'].steam_leg}), worst leaf rel {rel:.2e}, {wall:.2f} s")
+        if not (same and rel <= 1e-6):
+            _plants_fail(f"(f) superstructure {mode}: best {same}, rel {rel:.2e}")
+
+    tr = Tracker(F.MultiPeriodUsc(), tracking_horizon=4, n_tracking_hour=1, device=PLANTS_DEVICE)
+    dispatch = 360.0 + 50.0 * np.sin(2 * np.pi * np.arange(28) / 24.0)
+    t0 = time.perf_counter()
+    gaps = []
+    for h in range(24):
+        sol = tr.track_market_dispatch(dispatch[h:h + 4], 0, h)
+        if h in (0, 12):
+            lp = tr.program.instantiate(tr._last_params, device="cpu")
+            res = solve_lp_scipy(lp)
+            obj = float(lp.c @ tr._last_x + lp.c0)
+            ref = float(lp.c @ torch.as_tensor(res.x) + lp.c0)
+            gaps.append(abs(obj - ref) / max(abs(ref), 1.0))
+            if not (bool(sol.converged) and gaps[-1] <= 1e-6):
+                _plants_fail(f"(f) tracking hour {h}: objective {obj} vs HiGHS {ref}")
+    out["tracking_s"] = time.perf_counter() - t0
+    dev = np.abs(np.asarray(tr.get_implemented_profile()) - dispatch[:24]).max()
+    log(f"[plants] (f) MultiPeriodUsc tracking, 24 hourly solves: {out['tracking_s']:.2f} s, "
+        f"worst deviation from the dispatch {dev:.2e} MW, hours 0 and 12 vs HiGHS rel "
+        f"{[f'{x:.1e}' for x in gaps]}")
+    if dev > 0.5:
+        _plants_fail(f"(f) tracking deviates {dev} MW from a feasible dispatch")
+    return out
+
+
+def _pin(cores):
+    """Pin every thread of this process to `cores`."""
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(OSError):  # a thread that has ended
+            os.sched_setaffinity(int(tid), cores)
+
+
+def _start_cpu_tes_gradient():
+    """Start the CPU reference of plants (c)'s gradient (the plain chain,
+    ~10^7 eager ops, ~1 min) in a child process, so that it runs beside
+    the card's work of the earlier phases. With four cores or more the
+    child takes the last two and this process the rest until the child
+    ends, so that the child stays off the cores that drive the earlier
+    phases' timed, host-bound work."""
+    path = os.path.join(tempfile.mkdtemp(prefix="plants_"), "cpu_tes_gradient.json")
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    cores = sorted(os.sched_getaffinity(0))
+    split = len(cores) >= 4
+    if split:
+        env["PLANTS_CHILD_CORES"] = ",".join(map(str, cores[-2:]))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-tes-gradient", path], env=env)
+    if split:
+        _pin(set(cores[:-2]))
+        threading.Thread(target=_unpin_when_done, args=(proc, set(cores)), daemon=True).start()
+        log(f"[plants] CPU child on cores {cores[-2:]}, this process on {cores[:-2]} "
+            "until the child ends")
+    return {"path": path, "proc": proc}
+
+
+def _unpin_when_done(proc, cores):
+    """Give this process all its cores back once the child has ended."""
+    proc.wait()
+    _pin(cores)
+
+
+def phase_plants(child):
+    """The `plants` phase (see the module docstring), on the card; `child`
+    is `_start_cpu_tes_gradient`'s process."""
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.units.concrete_tes import tes_chain
+
+    t0 = time.perf_counter()
+    chain_sweep.launches = 0
+    tes_chain.launches = 0
+    out = {}
+    for key, part in (("nlp", _plants_nlp), ("usc", _plants_usc),
+                      ("tes", lambda: _plants_tes(child)), ("scpc", _plants_scpc),
+                      ("rankine", _plants_rankine), ("dispatch", _plants_dispatch)):
+        t1 = time.perf_counter()
+        out[key] = part()
+        log(f"[plants] {key} in {time.perf_counter() - t1:.1f} s")
+    out["tes_chain_launches"] = tes_chain.launches
+    out["chain_sweep_launches"] = chain_sweep.launches
+    log(f"[plants] launches on the plants path: tes_chain {out['tes_chain_launches']}, "
+        f"chain_sweep {out['chain_sweep_launches']} (NLPs and dense LPs only); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if out["tes_chain_launches"] == 0:
+        _plants_fail("tes_chain was launched no time on the plants path")
+    if _PLANTS_FAILS:
+        raise AssertionError(f"plants phase: {len(_PLANTS_FAILS)} gates failed: {_PLANTS_FAILS}")
+    return out
+
+
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
 PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
-                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400}
+                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400,
+                  "plants": 600}
 
 
 def _guarded(name, fn):
@@ -2685,13 +3374,27 @@ def _guarded(name, fn):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market",
+                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market,plants",
                     help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
-                    "serve, market (device and build always run)")
+                    "serve, market, plants (device and build always run)")
+    ap.add_argument("--cpu-tes-gradient", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.cpu_tes_gradient:  # the plants phase's CPU reference child
+        _cpu_tes_gradient(args.cpu_tes_gradient)
+        return 0
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     phase_device()
+    child = _start_cpu_tes_gradient() if "plants" in phases else None
+    try:
+        return _run_phases(phases, t_start, child)
+    finally:
+        if child is not None and child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+
+
+def _run_phases(phases, t_start, child):
     _guarded("build", phase_build)
     kernel_rows, max_err, main = (_guarded("kernel", phase_kernel) if "kernel" in phases
                                   else ([], None, {}))
@@ -2709,6 +3412,7 @@ def main(argv=None):
         _guarded("pdhg", lambda: phase_pdhg(year.get("records")))
     serve = _guarded("serve", phase_serve) if "serve" in phases else {}
     market = _guarded("market", phase_market) if "market" in phases else {}
+    plants = _guarded("plants", lambda: phase_plants(child)) if "plants" in phases else {}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -2723,7 +3427,8 @@ def main(argv=None):
                              "adaptive_year": adaptive.get("year", {}).get("launches"),
                              "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
                              "serve": serve.get("launches"),
-                             "market": market.get("launches")},
+                             "market": market.get("launches"),
+                             "plants": plants.get("chain_sweep_launches")},
         # the adaptive year batch's launches by chain count (compaction)
         "adaptive_launches_by_chains": adaptive.get("year", {}).get("launches_by_chains"),
         "max_abs_err": max_err,
@@ -2740,7 +3445,30 @@ def main(argv=None):
             for d, row in main.items()
         },
     }
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    tes = plants.get("tes", {})
+    tes_rec = {
+        "name": "tes_chain",
+        "route": "cuda",
+        "source": "dispatches_tpu_torch/csrc/tes_chain.cu",
+        # a kernel of the port's own: the JAX package runs this chain as a
+        # lax.scan that XLA compiles, no Pallas kernel
+        "replaces": "none (dispatches_tpu/units/concrete_tes.py:174, a lax.scan)",
+        "launches": plants.get("tes_chain_launches"),
+        "launches_per_hour": tes.get("launches_per_hour"),
+        "max_abs_err": tes.get("max_abs_err"),
+        # one fluid pass at the reference geometry, both sides as two lanes
+        "ms": tes.get("ms"),
+        "plain_ms": tes.get("plain_ms"),
+        "bound_ms": tes.get("bound_ms"),  # the throughput bound (roofline)
+        "bound_by": tes.get("bound_by"),
+        "library_ms": None,
+        # the dependent chain's latency bound and the kernel's share of it
+        "latency_bound_ms": tes.get("latency_bound_ms"),
+        "share_of_latency_bound": (tes["latency_bound_ms"] / tes["ms"]) if tes else None,
+        "latency_ns": tes.get("latency_ns"),
+        "shape": [2, 20],
+    }
+    print(json.dumps({"kernels": [rec, tes_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -23,23 +23,19 @@ each block owns, and the ring of shared-memory stages.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "chain_sweep.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+from .. import _nvcc as _nv
+
+_SRC = _nv.CSRC / "chain_sweep.cu"
+_BUILD_DIR = _nv.BUILD_DIR
+_NVCC_FLAGS = _nv.NVCC_FLAGS
+_nvcc = _nv.nvcc
 _lib = None
 _lock = threading.Lock()
 
@@ -53,35 +49,10 @@ MAX_STAGES = 32  # ring depth limit
 CONSUMER_WARPS = 8  # the source's default CS_CONSUMER_WARPS
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the chain-sweep kernel cannot be built")
-
-
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/chain_sweep.cu`` into ``_build/`` (once per source
     content) and return the shared library's path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libchain_sweep_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
+    return _nv.build("chain_sweep.cu", verbose=verbose)
 
 
 def bind(path) -> ctypes.CDLL:

@@ -92,6 +92,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert f"dispatches_tpu_torch/market/{name}.py" in found, name
     for name in ("options", "postprocess", "rts_gmlc", "workflow", "runners"):
         assert f"dispatches_tpu_torch/workflow/{name}.py" in found, name
+    # the steam and NLP half of the case studies; units/concrete_tes.py is
+    # also the wrapper of csrc/tes_chain.cu
+    for name in ("properties/steam", "properties/salts", "solvers/nlp",
+                 "case_studies/rankine/__init__", "case_studies/rankine/flowsheet",
+                 "case_studies/rankine/stochastic", "case_studies/fossil/__init__",
+                 "case_studies/fossil/usc_plant", "case_studies/fossil/usc_nlp",
+                 "units/concrete_tes", "case_studies/fossil/scpc_nlp",
+                 "case_studies/fossil/multiperiod", "case_studies/fossil/pricetaker",
+                 "case_studies/fossil/superstructure", "_nvcc"):
+        assert f"dispatches_tpu_torch/{name}.py" in found, name
+    assert (ROOT / "dispatches_tpu_torch" / "csrc" / "tes_chain.cu").exists()
     bad = re.compile(
         r"^\s*(?:import|from)\s+jax\b"  # jax itself
         r"|^\s*(?:import|from)\s+dispatches_tpu\b"  # the JAX package ...
