@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases serve   # the serving tier alone
     python3 chip_smoke.py --phases market  # the market layer and double loop alone
     python3 chip_smoke.py --phases plants  # the steam cycles and the NLP lane alone
+    python3 chip_smoke.py --phases cases   # the nuclear / solar cases and surrogates alone
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
@@ -15,7 +16,8 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
   2. build    compile csrc/chain_sweep.cu and csrc/tes_chain.cu with nvcc
               (one process each, started together), print the seconds
   3. kernel   the chain-sweep kernel against its plain PyTorch version on
-              the card at 14 (chains, steps, m, k) shapes, both sweep
+              the card at 22 (chains, steps, m, k) shapes (8 of them the
+              cases phase's banded year LPs), both sweep
               directions, factors in the padded layout the kernel streams
               (`sweep_factors`), tolerance 1e-4 of the reference's max;
               times beside the HBM bound and the plain version's time, with
@@ -119,7 +121,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   the CPU's;
               (b) the 52 weekly LPs (rts303, T=168, f64) through
                   `solve_lp_pdhg_adaptive` (PDLP controls, tol 1e-6,
-                  100,000 iterations, chunks of 2,000, conformance=True)
+                  40,000 iterations, chunks of 2,000, conformance=True)
                   and the dense IPM batch (tol 1e-8), weeks 0 and the
                   slowest through HiGHS: week 0 converged, every
                   converged lane within 1e-4 (1 + |obj_ipm|) of the IPM
@@ -132,7 +134,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   of 2,000 bitwise a one-shot solve;
               (c) the year phase's 8 LMP scenarios x 8,760 h through
                   `solve_lp_pdhg` with the controls at a fixed budget of
-                  20,000 iterations, traced: finite, residuals equal to
+                  5,000 iterations, traced: finite, residuals equal to
                   the certificates, two 1,000-iteration runs bitwise
                   equal; printed: the residual trajectory, the NPVs
                   against the year phase's, ms per iteration, peak memory;
@@ -155,7 +157,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   every ticket resolves, every lane converges, every row
                   bitwise its reference; printed: wall, LPs/s, chunks,
                   refills, the one-shot batch of 52's wall;
-              (b) open loop: 104 Poisson arrivals (`tools/torch_loadgen.py`
+              (b) open loop: 52 Poisson arrivals (`tools/torch_loadgen.py`
                   `arrival_schedule`, seed 0) over the weeks
                   (`problem_seeds`, dup 0.25, seed mod 52) at 0.5 x (a)'s
                   rate, cache on: zero lost, every solve converged, every
@@ -270,6 +272,62 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   hourly solves following a feasible dispatch, hours 0
                   and 12 against HiGHS.
               The gates are raised at the phase's end.
+ 12. cases    the nuclear and solar-hydrogen case studies, the detailed
+              tank and the market-surrogate pillar on the card; the HiGHS
+              references run on the host beside the card's work:
+              (a) `tests/test_nuclear.py`'s three flowsheet goldens at its
+                  tolerances; `traditional_tea_enumeration` (6 x 10);
+              (b) the nuclear price-taker over rts303's 8,736 h (the
+                  reference runs 8,784), banded (364 day-blocks, the year
+                  sweep's solver options, SPIKE slabs, f32 factors swept
+                  by the kernel): DA, RT and Max-DA-RT as one batch of 3
+                  lanes, then DA-RT's second step from the DA lane's
+                  net power; the report's 6 x 10 grid (pinned PEM
+                  capacities) in batches of 60 lanes (halved while the
+                  card runs out of memory). Gates: every lane converged,
+                  the DA lane's and grid lane 34's annualized NPV within
+                  1e-3 of HiGHS, Max-DA-RT >= DA and RT, the PEM capacity
+                  factor not falling as the H2 price rises at a fixed PEM
+                  fraction, chain_sweep launched. Printed: walls, LPs/s,
+                  iterations, peak memory, launches by chain count;
+              (c) solar hydrogen: (c1) `pv_battery_hydrogen_optimize` at
+                  T = 168 for the blends 1.0, 0.3, 0.0 on the dense IPM,
+                  each NPV within 1e-3 of HiGHS; (c2) the three blends as
+                  one banded batch over 8,736 h in 12-h blocks (the blend a
+                  parameter, the cyclic ramp through a border column)
+                  through `solve_lp_banded_escalated` (the year sweep's
+                  options for 16 iterations, then f64 factors in the same
+                  slabs) at tol 1e-6: every lane converged, its KKT
+                  certificates within the default ConformancePolicy,
+                  chain_sweep launched. LMPs are
+                  rts303's DA series; PV CF, load, reserve and NG price
+                  seeded synthetic series (the reference's inputs are not
+                  in the repository);
+              (d) the detailed tank: the fill and empty goldens of
+                  `tests/test_tank_detailed.py`, then 64 lanes x 168
+                  hourly steps of seeded flows: mass conserved to 1e-9 rel,
+                  a finite gradient of the final pressure in the inflow;
+                  ms and device launches a step printed;
+              (e) `tests/test_surrogate_scale.py`'s synthetic sweep
+                  (10,000 runs x 8,736 h, seed 7, 5 latent prototypes) as
+                  arrays into `SimulationData`; k-means (20 Lloyd steps, 2
+                  restarts, seed 0) over the kept days on the card: more
+                  than 2 M days kept, every prototype recovered (rms <
+                  0.05); frequency labels summing to 1 (1e-6); the
+                  frequency (64, 64; 150 epochs) and revenue (500 epochs)
+                  networks at that file's R2 thresholds;
+              (f) `conceptual_design_dynamic_RE` and a 4 x 4 (bid, size)
+                  `design_sweep` with the wind size free (one
+                  `solve_nlp_batch`) on (e)'s networks, the design inputs
+                  mapped affinely onto the sweep's input box;
+                  `conceptual_design_ss_NE` with the revenue network and
+                  an analytic capacity factor; `conceptual_design_problem_nn`
+                  with `tests/test_conceptual_design.py`'s stand-ins: each
+                  converged and no worse than a brute-force grid over its
+                  box; `fit_arma` on rts303's DA LMPs and 100 realizations
+                  x 8,736 h: mean within 10% of the series', hour-of-day
+                  spread within 20%.
+              The gates are raised at the phase's end.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -288,6 +346,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
+# the cases phase's banded year LPs (one SPIKE slab split each, `spike_slabs`):
+# the nuclear variants (3 lanes; 364 day-blocks of 120 rows, 14 slabs: 14 x
+# 3 interior chains of 25 steps, 3 interface chains of 14), the nuclear
+# grid (60 lanes; blocks of 121 rows, the pinned capacity's row), solar
+# hydrogen (3 lanes; 728 12-h blocks of 280 rows, 26 slabs of 27 + 1
+# steps) with the Woodbury solve's 13 right-hand sides (13 border columns)
+CASES_KERNEL_SHAPES = [
+    (42, 25, 120, 1), (3, 14, 120, 1), (840, 25, 121, 1), (60, 14, 121, 1),
+    (78, 27, 280, 1), (78, 27, 280, 13), (3, 26, 280, 1), (3, 26, 280, 13),
+]
 # (chains, steps, m, k): three small ones, a year batch of 8 lanes as one
 # chain each, and the shapes the year sweep's 5 SPIKE slabs give the
 # kernel: 8 x 5 interior chains of 72 steps and 8 interface chains of 5;
@@ -299,7 +367,7 @@ KERNEL_SHAPES = [
     (40, 72, 241, 1), (40, 72, 241, 3), (8, 5, 241, 1), (8, 5, 241, 3),
     (3, 7, 300, 2),
     (20, 72, 241, 1), (20, 72, 241, 3), (10, 72, 241, 1), (4, 5, 241, 1),
-]
+] + CASES_KERNEL_SHAPES
 MAIN_SHAPE = (40, 72, 241, 1)  # the year sweep's interior chains, k = 1 solves
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
@@ -1315,11 +1383,11 @@ def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
 
 PDLP_KW = dict(adaptive_restarts=True, primal_weight=True, linesearch=True)
 PDHG_TOL = 1e-6
-PDHG_MAX_ITER = 100_000
+PDHG_MAX_ITER = 40_000  # (b): 100,000 before the cases phase; cut to pay for it
 PDHG_CHUNK = 2000
-PDHG_YEAR_ITERS = 20_000  # (c): a fixed budget, not a convergence run
+PDHG_YEAR_ITERS = 5_000  # (c): a fixed budget, not a convergence run (20,000 before the cases phase)
 PDHG_REPEAT_ITERS = 1000  # (c): two runs of this many, bitwise equal
-PDHG_RESUME_ITERS = 6000  # (b): one-shot vs chunks of PDHG_CHUNK, 8 weeks
+PDHG_RESUME_ITERS = 4000  # (b): one-shot vs chunks of PDHG_CHUNK, 8 weeks (6,000 before the cases phase)
 OBJ_AGREE = 1e-4  # bench.py's obj_agree band: |obj - obj_ipm| <= 1e-4 (1 + |obj_ipm|)
 CERT_RTOL = 1e-9  # solver residuals vs the certificates
 
@@ -1866,7 +1934,9 @@ def phase_pdhg(year_records=None):
 
 SERVE_BUCKET, SERVE_CHUNK = 8, 8
 SERVE_KW = dict(tol=1e-8, max_iter=60)  # the weekly dense IPM batch's options (pdhg (b))
-SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 104, 0.25, 0.5  # (b): requests, repeats, x (a)'s rate
+# (b): requests (104 before the cases phase; cut to pay for it),
+# repeats, x (a)'s rate
+SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 52, 0.25, 0.5
 SERVE_PROFILE_CHUNKS = 3
 SERVE_DEVICE = "cuda"
 _SERVE_FAILS = []
@@ -3354,12 +3424,689 @@ def phase_plants(child):
     return out
 
 
+# ----------------------------------------------------------------------
+# 12. cases: the nuclear and solar-hydrogen case studies, the detailed
+# tank, and the market-surrogate pillar (see the module docstring)
+
+_CASES_FAILS = []
+CASES_DEVICE = "cuda"  # the CPU rehearses the phase with "cpu" at small sizes
+CASES_HOURS = 8736  # rts303's DA and RT hours: the year of (b) and (c2)
+CASES_GRID_BATCH = 60  # (b2): lanes a banded batch (halved while the card runs out of memory)
+CASES_GRID_LANE = 34  # (b2): the lane held to HiGHS, (h2 price 1.5, PEM fraction 0.25)
+CASES_H2_PRICE = 1.25  # (b1): $/kg H2
+CASES_NPV_RTOL = 1e-3
+CASES_SOLAR_WEEK = 168  # (c1)
+# (c2): the solar year LP's factors turn f64 after the first iterations
+# (`solve_lp_banded_escalated`): its mixed tier stalls at a scaled gap of
+# ~1e-3. Its tolerance is the JAX package's year tier's: in every
+# precision (f64 factors too) the iterations stop at a scaled gap of
+# 6e-6..2.6e-5 after 60-67 of them (`tools/torch_banded_precision.py`)
+CASES_SOLAR_TOL = 1e-6
+CASES_BLENDS = (1.0, 0.3, 0.0)
+CASES_TANK = (64, 168)  # (d): lanes, hourly steps
+CASES_RUNS = 10_000  # (e): the sweep's runs (`tests/test_surrogate_scale.py`)
+CASES_ARMA = 100  # (f): realizations
+# (f): the ARMA's Fourier mean. The default (24, 168, 8760 h) holds one
+# daily sinusoid, and rts303's hour-of-day profile (an evening peak of 56
+# against a morning 7 $/MWh) is not one: its spread would come out 0.41 of
+# the series'. The daily harmonics to 3 h keep it
+CASES_ARMA_PERIODS = tuple(24.0 / k for k in range(1, 9)) + (168.0, 8760.0)
+_H = np.arange(24)
+# `tests/test_surrogate_scale.py`'s latent day prototypes (flat, morning
+# peak, evening peak, midday bump, night valley)
+CASES_PROTOS = np.stack([
+    np.full(24, 0.55),
+    0.25 + 0.55 * np.exp(-0.5 * ((_H - 8) / 2.5) ** 2),
+    0.25 + 0.55 * np.exp(-0.5 * ((_H - 19) / 2.5) ** 2),
+    0.15 + 0.75 * np.exp(-0.5 * ((_H - 13) / 3.5) ** 2),
+    0.65 - 0.45 * np.exp(-0.5 * ((_H - 3) / 3.0) ** 2),
+]).astype(np.float32)
+
+
+def _cases_fail(msg):
+    """A failed gate of the cases phase: logged now, raised at its end."""
+    log(f"[cases] GATE FAILED: {msg}")
+    _CASES_FAILS.append(msg)
+
+
+def _csync():
+    if CASES_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cpeak_reset():
+    if CASES_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _cpeak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30 if CASES_DEVICE == "cuda" else float("nan")
+
+
+def _highs_async(pool, prog, params, expr):
+    """HiGHS on the host, in a thread (its solve releases the GIL): the
+    future's value is `expr` at HiGHS's solution."""
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+
+    def run():
+        t0 = time.perf_counter()
+        res = solve_lp_scipy_sparse(prog, params)
+        hp = {k: torch.as_tensor(np.asarray(v, float)) for k, v in params.items()}
+        return float(prog.eval_expr(expr, torch.as_tensor(res.x), hp)), time.perf_counter() - t0
+
+    return pool.submit(run)
+
+
+def _banded_year(prog, params, hours, block_hours, tag, escalate=False, tol=None):
+    """One banded batch of the year sweep's solver options on the card
+    (with `escalate`, through `solve_lp_banded_escalated`: f64 factors, in
+    the same SPIKE slabs, from its `ESCALATE_AT_ITER` on; `tol` for the
+    sweep's own): (meta, blp, sol, wall s, launches)."""
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.structured import (
+        ESCALATE_AT_ITER, extract_time_structure, solve_lp_banded_batch,
+        solve_lp_banded_escalated,
+    )
+    from dispatches_tpu_torch.workflow.runners import year_sweep_solver_kw
+
+    meta = extract_time_structure(prog, hours, block_hours)
+    kw = year_sweep_solver_kw(torch.float64, Tb=meta.Tb)
+    if tol is not None:
+        kw["tol"] = tol
+    _cpeak_reset()
+    n0, by0 = chain_sweep.launches, dict(chain_sweep.launches_by_chains)
+    t0 = time.perf_counter()
+    blp = meta.instantiate(params, device=CASES_DEVICE)
+    solve = solve_lp_banded_escalated if escalate else solve_lp_banded_batch
+    sol = solve(meta, blp, **kw)
+    _csync()
+    wall = time.perf_counter() - t0
+    by = {c: n - by0.get(c, 0) for c, n in chain_sweep.launches_by_chains.items()
+          if n != by0.get(c, 0)}
+    log(f"[cases] {tag}: {sol.x.shape[0] if sol.x.dim() > 1 else 1} lanes, Tb {meta.Tb} "
+        f"blocks of {meta.mB} x {meta.nB}, {meta.p} border columns, slabs {kw.get('slabs')}: "
+        f"wall {wall:.2f} s, iterations {sol.iterations.tolist()}, peak {_cpeak_gib():.2f} GiB, "
+        f"chain_sweep launches {chain_sweep.launches - n0} (by chain count {by}), tol "
+        f"{kw['tol']}" + (f"; f64 factors from iteration {ESCALATE_AT_ITER}" if escalate else ""))
+    return meta, blp, sol, wall, chain_sweep.launches - n0
+
+
+def _cases_flowsheet():
+    """(a) the nuclear flowsheet goldens and the traditional TEA grid."""
+    from dispatches_tpu_torch.case_studies.nuclear import solve_ne_flowsheet
+    from dispatches_tpu_torch.case_studies.nuclear.tea import traditional_tea_enumeration
+
+    dev = CASES_DEVICE
+    r = solve_ne_flowsheet(np_capacity_mw=500.0, split_frac_grid=0.6, include_tank=False,
+                           include_turbine=False, device=dev)
+    pem = float(r.pem_out_mol)
+    ok = abs(pem / 505.481 - 1) <= 1e-4 and abs(float(r.np_to_grid_kw) - 300e3) <= 1e-6
+    r = solve_ne_flowsheet(np_capacity_mw=500.0, split_frac_grid=0.6, include_turbine=False,
+                           flow_mol_to_pipeline=10.0, flow_mol_to_turbine=0.0, device=dev)
+    hold_tank = float(r.tank_holdup_mol)
+    ok &= abs(hold_tank / (1747732.3199 + 36000) - 1) <= 1e-4
+    t0 = time.perf_counter()
+    r = solve_ne_flowsheet(np_capacity_mw=500.0, split_frac_grid=0.6, flow_mol_to_pipeline=10.0,
+                           flow_mol_to_turbine=10.0, device=dev)
+    _csync()
+    turb_s = time.perf_counter() - t0
+    y = (r.turbine.n_out / r.turbine.n_out.sum()).cpu().numpy()
+    hold_turb = float(r.tank_holdup_mol)
+    ok &= abs(hold_turb / 1747732.3199 - 1) <= 1e-4
+    ok &= abs(float(r.turbine.T_comp_out) / 793.42 - 1) <= 2e-2
+    ok &= abs(y[0] - 0.00088043) <= 5e-4 and abs(y[2] / 0.73278 - 1) <= 2e-2
+    ok &= abs(y[1] / 0.15276 - 1) <= 5e-2
+    log(f"[cases] (a) flowsheet goldens on the card (golden in parentheses): PEM "
+        f"{pem:.6f} mol/s (505.481), holdups {hold_tank:,.4f} (1,783,732.32) / "
+        f"{hold_turb:,.4f} (1,747,732.32) mol, compressor outlet "
+        f"{float(r.turbine.T_comp_out):.2f} K (793.42), y_H2 {y[0]:.3e}, y_N2 {y[2]:.5f}, "
+        f"y_O2 {y[1]:.5f}; turbine chain {turb_s * 1e3:.1f} ms: {'hold' if ok else 'FAIL'}")
+    if not ok:
+        _cases_fail("(a) nuclear flowsheet goldens")
+    t0 = time.perf_counter()
+    tea = traditional_tea_enumeration(device=dev)
+    npv = tea["net_npv"].cpu().numpy()
+    _csync()
+    tea_ms = (time.perf_counter() - t0) * 1e3
+    mono = bool((np.diff(npv, axis=0) >= -1e-9).all()
+                and (np.diff(tea["h2_rev"].cpu().numpy(), axis=1) > 0).all())
+    log(f"[cases] (a) ne_traditional_tea over the 6 x 10 grid: {tea_ms:.2f} ms, NPV "
+        f"{npv.min():.2f}..{npv.max():.2f} $M, monotone in price and ratio: {mono}")
+    if not (npv.shape == (6, 10) and np.isfinite(npv).all() and mono):
+        _cases_fail("(a) traditional TEA grid")
+    return dict(tea_ms=tea_ms)
+
+
+def _cases_nuclear(pool):
+    """(b) the nuclear price-taker over a year, banded."""
+    from dispatches_tpu_torch.case_studies.nuclear import pricetaker as NP
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.structured import solve_lp_banded
+    from dispatches_tpu_torch.workflow.runners import year_sweep_solver_kw
+
+    H = CASES_HOURS
+    data = P.load_rts303()
+    da, rt = np.resize(data["da_lmp"], H), np.resize(data["rt_lmp"], H)
+    out = {}
+    chain_sweep.launches = 0  # this path's launches: counted from 0, read at its end
+    cfg = NP.NuclearPricetakerConfig(T=H)
+    prog = NP.build_nuclear_pricetaker(cfg)
+    markets = ("DA", "RT", "Max-DA-RT")
+    lanes = [NP._params(cfg, NP.settlement_prices(mk, da, rt), CASES_H2_PRICE) for mk in markets]
+    stacked = {k: np.stack([p[k] for p in lanes]) for k in lanes[0]}
+    highs_da = _highs_async(pool, prog, lanes[0], "annualized_npv")
+    meta, _, sol, wall, n1 = _banded_year(prog, stacked, H, 24, "(b1) DA, RT, Max-DA-RT")
+    x = sol.x.cpu()
+    hp = {k: torch.as_tensor(v) for k, v in stacked.items()}
+    npv = prog.eval_expr("annualized_npv", x, hp).numpy()
+    # DA-RT's second step: the RT settlement LP with the DA lane's position
+    disp = prog.eval_expr("net_power", x[0], {k: v[0] for k, v in hp.items()}).numpy()
+    p2 = NP._params(cfg, rt, CASES_H2_PRICE, lmp_da=da, dispatch_da=disp)
+    t0 = time.perf_counter()
+    s2 = solve_lp_banded(meta, meta.instantiate(p2, device=CASES_DEVICE),
+                         **year_sweep_solver_kw(torch.float64, Tb=meta.Tb))
+    _csync()
+    wall2 = time.perf_counter() - t0
+    npv2 = float(prog.eval_expr("annualized_npv", s2.x.cpu(),
+                                {k: torch.as_tensor(v) for k, v in p2.items()}))
+    conv = sol.converged.tolist() + [bool(s2.converged)]
+    log(f"[cases] (b1) annualized NPV at ${CASES_H2_PRICE}/kg: "
+        + ", ".join(f"{mk} {v / 1e6:.4f} $M" for mk, v in zip(markets, npv))
+        + f", DA-RT {npv2 / 1e6:.4f} $M (second step {wall2:.2f} s, {int(s2.iterations)} "
+        f"iterations); LPs/s {3 / wall:.3f}; converged {conv}")
+    if not all(conv):
+        _cases_fail(f"(b1) nuclear year lanes not converged: {conv}")
+    if not (npv[2] >= npv[0] - 1e-6 * abs(npv[0]) and npv[2] >= npv[1] - 1e-6 * abs(npv[1])):
+        _cases_fail(f"(b1) Max-DA-RT {npv[2]} below DA {npv[0]} or RT {npv[1]}")
+    out["b1"] = dict(wall_s=wall, npv=npv.tolist(), npv_da_rt=npv2, launches=n1,
+                     iterations=sol.iterations.tolist(), second_step_s=wall2)
+
+    # (b2) the report's grid, pinned PEM capacities
+    cfg2, grid = NP.enumeration_params(da, T=H)
+    prog2 = NP.build_nuclear_pricetaker(cfg2)
+    L = grid["lmp"].shape[0]
+    lane_p = {k: v[CASES_GRID_LANE] for k, v in grid.items()}
+    highs_grid = _highs_async(pool, prog2, lane_p, "annualized_npv")
+    batch, xs, iters, convs, walls, peaks, t0 = CASES_GRID_BATCH, [], [], [], [], [], time.perf_counter()
+    n_grid0 = chain_sweep.launches
+    start = 0
+    while start < L:
+        part = {k: v[start:start + batch] for k, v in grid.items()}
+        try:
+            _, _, s, w, _ = _banded_year(prog2, part, H, 24,
+                                          f"(b2) grid lanes {start}..{start + len(part['lmp']) - 1}")
+        except torch.OutOfMemoryError:
+            if batch == 1:
+                raise
+            batch = max(1, batch // 2)
+            torch.cuda.empty_cache()
+            log(f"[cases] (b2) out of device memory: batches of {batch}")
+            continue
+        xs.append(s.x.cpu())
+        iters += s.iterations.tolist()
+        convs += s.converged.tolist()
+        walls.append(w)
+        peaks.append(_cpeak_gib())
+        start += len(part["lmp"])
+    grid_s = time.perf_counter() - t0
+    n2 = chain_sweep.launches - n_grid0
+    res = NP.enumeration_results(prog2, torch.cat(xs), grid, NP.ENUMERATION_H2_PRICES,
+                                 NP.ENUMERATION_PEM_FRACS, H)
+    F = len(NP.ENUMERATION_PEM_FRACS)
+    cap = np.array([[res["pem_cap_factor"][f"{i}{j}"] for j in range(F)]
+                    for i in range(len(NP.ENUMERATION_H2_PRICES))])
+    log(f"[cases] (b2) {L} grid lanes in batches of {batch}: {grid_s:.2f} s ({L / grid_s:.3f} "
+        f"LPs/s), iterations {min(iters)}..{max(iters)}, peak {max(peaks):.2f} GiB "
+        f"({max(peaks) / min(batch, L):.3f} GiB a lane), chain_sweep launches {n2}")
+    log("[cases] (b2) PEM capacity factor (rows: H2 price, columns: PEM fraction): "
+        + "; ".join(" ".join(f"{v:.3f}" for v in row) for row in cap))
+    if not all(convs):
+        _cases_fail(f"(b2) grid lanes not converged: {[i for i, c in enumerate(convs) if not c]}")
+    if not (np.diff(cap, axis=0) >= -1e-6).all():
+        _cases_fail("(b2) the PEM capacity factor falls as the H2 price rises")
+    # the gates against HiGHS, whose solves ran beside the card's
+    (ref_da, hs_da), (ref_g, hs_g) = highs_da.result(), highs_grid.result()
+    key = f"{CASES_GRID_LANE // F}{CASES_GRID_LANE % F}"
+    rel_da = abs(npv[0] - ref_da) / abs(ref_da)
+    rel_g = abs(res["net_npv"][key] * 1e6 - ref_g) / abs(ref_g)
+    log(f"[cases] (b) HiGHS (on the host, beside the card): DA lane {ref_da / 1e6:.6f} $M "
+        f"rel {rel_da:.2e} ({hs_da:.1f} s); grid lane {CASES_GRID_LANE} {ref_g / 1e6:.6f} $M "
+        f"rel {rel_g:.2e} ({hs_g:.1f} s)")
+    if not (rel_da <= CASES_NPV_RTOL and rel_g <= CASES_NPV_RTOL):
+        _cases_fail(f"(b) NPV vs HiGHS: DA rel {rel_da:.2e}, grid rel {rel_g:.2e}")
+    out["b2"] = dict(wall_s=grid_s, batch=batch, launches=n2, iterations=iters,
+                     peak_gib=max(peaks), rel_highs=rel_g, cap_factor=cap.tolist())
+    out["rel_highs_da"] = rel_da
+    out["launches"] = chain_sweep.launches
+    if out["launches"] <= 0 and CASES_DEVICE == "cuda":
+        _cases_fail("(b) chain_sweep was launched no time on the nuclear year path")
+    return out
+
+
+def _solar_series(hours, seed=10):
+    """Seeded synthetic PV CF, load (MW), reserve (MW) and NG price
+    ($/MMBtu) of `hours`: the reference's input files are not in the
+    repository."""
+    rng = np.random.default_rng(seed)
+    h = np.arange(hours)
+    day = h // 24
+    season = 0.75 + 0.25 * np.cos(2 * np.pi * (day - 172) / 365)
+    clouds = np.repeat(rng.uniform(0.55, 1.0, day.max() + 1), 24)[: hours]
+    pv = np.clip(np.sin(np.pi * ((h % 24) - 6) / 12), 0.0, None) * season * clouds
+    load = 100.0 + 20.0 * np.sin(2 * np.pi * ((h % 24) - 12) / 24) + rng.normal(0, 3, hours)
+    reserve = 15.0 + 0.1 * load
+    ng = np.clip(3.0 + 0.5 * np.cos(2 * np.pi * day / 365) + rng.normal(0, 0.1, hours), 1.0, None)
+    return pv, load, reserve, ng
+
+
+def _cases_solar(pool):
+    """(c) solar hydrogen: the week on the dense IPM, the year banded."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables import solar_hydrogen as S
+    from dispatches_tpu_torch.obs.conformance import ConformancePolicy, kkt_certificates
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.structured import _BASE_NDIM
+
+    out = {}
+    chain_sweep.launches = 0  # this path's launches: counted from 0, read at its end
+    lmp = np.resize(P.load_rts303()["da_lmp"], CASES_HOURS)
+    W = CASES_SOLAR_WEEK
+    pv, load, reserve, ng = _solar_series(CASES_HOURS)
+    week = (pv[:W], load[:W], reserve[:W], lmp[:W], ng[:W])
+    futs, c1 = {}, {}
+    for r in CASES_BLENDS:
+        design = S.SolarHydrogenDesign(T=W, h2_blend_ratio=r)
+        prog, _ = S.build_pricetaker(design)
+        futs[r] = _highs_async(pool, prog, S.solar_hydrogen_params(W, *week), "NPV")
+        t0 = time.perf_counter()
+        res = S.pv_battery_hydrogen_optimize(W, *week, design=design, device=CASES_DEVICE)
+        c1[r] = (res, time.perf_counter() - t0)
+    worst = 0.0
+    for r, (res, wall) in c1.items():
+        ref, hs = futs[r].result()
+        rel = abs(res["NPV"] - ref) / abs(ref)
+        worst = max(worst, rel)
+        log(f"[cases] (c1) blend {r}: NPV {res['NPV']:.6e} HiGHS {ref:.6e} rel {rel:.2e}, "
+            f"{int(res['solution'].iterations)} iterations, {wall:.2f} s (HiGHS {hs:.1f} s), "
+            f"PV {res['pv_kw'] / 1e3:.1f} MW, battery {res['batt_kw'] / 1e3:.1f} MW, PEM "
+            f"{res['pem_kw'] / 1e3:.1f} MW, turbine {res['turb_kw'] / 1e3:.1f} MW")
+        if not (res["converged"] and rel <= CASES_NPV_RTOL):
+            _cases_fail(f"(c1) blend {r}: converged {res['converged']}, rel {rel:.2e}")
+    out["c1_worst_rel"] = worst
+
+    # (c2) the three blends over the year as one banded batch, 12-h blocks
+    H = CASES_HOURS
+    prog, _ = S.build_pricetaker(S.SolarHydrogenDesign(T=H, h2_blend_ratio=None,
+                                                       ramp_wrap_border=True))
+    base = S.solar_hydrogen_params(H, pv, load, reserve, lmp, ng)
+    lanes = {k: np.stack([v] * len(CASES_BLENDS)) for k, v in base.items()}
+    lanes["h2_blend"] = np.asarray(CASES_BLENDS)
+    meta, blp, sol, wall, n_c2 = _banded_year(prog, lanes, H, 12, "(c2) blends 1.0, 0.3, 0.0",
+                                              escalate=True, tol=CASES_SOLAR_TOL)
+    axes = tuple(0 if a.dim() == _BASE_NDIM[f] + 1 else None for f, a in zip(blp._fields, blp))
+    cert = kkt_certificates(blp, sol, axes=axes, meta=meta)
+    pol = ConformancePolicy()
+    bounds = np.array([pol.bound(f) for f in ("res_primal", "res_dual", "comp", "gap")])
+    npv = prog.eval_expr("NPV", sol.x.cpu(), {k: torch.as_tensor(v) for k, v in lanes.items()})
+    log(f"[cases] (c2) NPV " + ", ".join(f"{r}: {v:.6e}" for r, v in zip(CASES_BLENDS, npv.tolist()))
+        + f"; certificates (res_primal, res_dual, comp, gap) "
+        + "; ".join(" ".join(f"{v:.1e}" for v in row) for row in cert))
+    if not bool(sol.converged.all()):
+        _cases_fail(f"(c2) solar year lanes not converged: {sol.converged.tolist()}")
+    if not (np.isfinite(cert).all() and (cert <= bounds).all()):
+        _cases_fail("(c2) KKT certificates outside the default ConformancePolicy")
+    out["c2"] = dict(wall_s=wall, iterations=sol.iterations.tolist(), launches=n_c2,
+                     npv=npv.tolist(), certificates=cert.tolist(), mB=meta.mB, nB=meta.nB,
+                     p=meta.p, Tb=meta.Tb)
+    out["launches"] = chain_sweep.launches
+    if out["launches"] <= 0 and CASES_DEVICE == "cuda":
+        _cases_fail("(c) chain_sweep was launched no time on the solar year path")
+    return out
+
+
+def _launches_of(fn):
+    """(device kernels launched, host wall s) of one call of `fn`, by the
+    profiler on the card; (nan, wall) on the CPU."""
+    if CASES_DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return float("nan"), time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n, wall
+
+
+def _cases_tank():
+    """(d) the detailed tank on the card."""
+    from dispatches_tpu_torch.units.tank_detailed import HydrogenTankDetailed
+
+    tank = HydrogenTankDetailed(tank_diameter=0.1, tank_length=0.3, dt=3600.0,
+                                device=CASES_DEVICE)
+    st0 = tank.initial_state(pressure=1e5, temperature=300.0)
+    ok = True
+    for fout, (n, T, P) in ((0.0, (3600.0945, 300.749, 3820683416.0)),
+                            (0.9, (360.0945, 300.055, 381276652.0))):
+        st = tank.step(st0, 1.0, 300.0, fout)
+        got = [float(a) for a in st]
+        ok &= abs(got[0] / n - 1) <= 1e-6 and abs(got[1] - T) <= 0.2 and abs(got[2] / P - 1) <= 1e-2
+        log(f"[cases] (d) golden, out {fout} mol/s: holdup {got[0]:.4f} mol ({n}), "
+            f"T {got[1]:.3f} K ({T}), P {got[2]:.4e} Pa ({P:.4e})")
+    if not ok:
+        _cases_fail("(d) tank fill/empty goldens")
+    lanes, hours = CASES_TANK
+    rng = np.random.default_rng(4)
+    fin = torch.tensor(rng.uniform(0.5, 1.0, (lanes, hours)), device=CASES_DEVICE,
+                       requires_grad=True)
+    fout = torch.tensor(rng.uniform(0.0, 0.4, (lanes, hours)), device=CASES_DEVICE)
+    st = tank.initial_state()
+    launches, step_s = _launches_of(lambda: tank.step(
+        type(st)(*(a.expand(lanes) for a in st)), fin[:, 0].detach(), 300.0, fout[:, 0]))
+    t0 = time.perf_counter()
+    traj = tank.simulate(st, fin, 300.0, fout)
+    _csync()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(traj.pressure[:, -1].sum(), fin)
+    _csync()
+    grad_s = time.perf_counter() - t0
+    expect = float(st.holdup_mol) + 3600.0 * (fin.detach() - fout).sum(1)
+    mass = float(((traj.holdup_mol[:, -1].detach() - expect).abs() / expect).max())
+    log(f"[cases] (d) {lanes} lanes x {hours} h: {sim_s:.3f} s ({sim_s / hours * 1e3:.3f} ms a "
+        f"step; one step {step_s * 1e3:.3f} ms, {launches} launches), gradient {grad_s:.3f} s, "
+        f"mass rel {mass:.2e}, final pressure gradient finite "
+        f"{bool(torch.isfinite(g).all())} and > 0 {bool((g > 0).all())}")
+    if not (mass <= 1e-9 and bool(torch.isfinite(g).all())):
+        _cases_fail(f"(d) tank: mass rel {mass:.2e} or a non-finite gradient")
+    return dict(sim_s=sim_s, step_ms=step_s * 1e3, step_launches=launches, grad_s=grad_s,
+                mass_rel=mass)
+
+
+def _synth_sweep(rng, n_runs):
+    """`tests/test_surrogate_scale.py`'s `_synth_sweep` (copied: that file
+    imports JAX): (inputs (N,4), pmax, dispatch (N, 8736) f32, revenue (N,))
+    from per-run mixtures of the latent day prototypes, some zero days."""
+    n_days, K = 8736 // 24, len(CASES_PROTOS)
+    inputs = rng.uniform(0.0, 1.0, (n_runs, 4)).astype(np.float32)
+    inputs[:, 0] = 100.0 + 350.0 * inputs[:, 0]
+    pmax = inputs[:, 0]
+    unit = inputs.copy()
+    unit[:, 0] = (pmax - 100.0) / 350.0
+    Wm = rng.normal(0, 1, (4, K)).astype(np.float32)
+    logits = unit @ Wm
+    mix = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    u = rng.uniform(0, 1, (n_runs, n_days)).astype(np.float32)
+    cdf = np.cumsum(mix, axis=1)
+    day_proto = (u[:, :, None] > cdf[:, None, :]).sum(2)
+    cf = CASES_PROTOS[day_proto]
+    cf = cf + rng.normal(0, 0.02, cf.shape).astype(np.float32)
+    cf = np.clip(cf, 0.0, 1.0)
+    zero_frac = 0.3 * unit[:, 3]
+    zero_days = rng.uniform(0, 1, (n_runs, n_days)) < zero_frac[:, None]
+    cf[zero_days] = 0.0
+    dispatch = (cf * pmax[:, None, None]).reshape(n_runs, 8736).astype(np.float32)
+    revenue = (1e6 * unit[:, 0] + 4e5 * np.sin(np.pi * unit[:, 1])
+               + 2e5 * unit[:, 2] * unit[:, 0] - 3e5 * unit[:, 3]
+               + rng.normal(0, 1e4, n_runs)).astype(np.float32)
+    return inputs, pmax, dispatch, revenue
+
+
+def _cases_surrogates():
+    """(e) the surrogate pillar at the reference's sweep scale."""
+    from dispatches_tpu_torch.surrogates import SimulationData, TimeSeriesClustering, TrainNNSurrogates
+
+    t0 = time.perf_counter()
+    inputs, _, dispatch, revenue = _synth_sweep(np.random.default_rng(7), CASES_RUNS)
+    sd = SimulationData(dispatch, inputs, case_type="RE")
+    cf = sd.dispatch_capacity_factors().astype(np.float32)
+    data_s = time.perf_counter() - t0
+    tsc = TimeSeriesClustering(num_clusters=len(CASES_PROTOS))
+    t0 = time.perf_counter()
+    res = tsc.clustering_data(cf, seed=0, n_iter=20, n_init=2, device=CASES_DEVICE)
+    km_s = time.perf_counter() - t0
+    kept = res["labels"].shape[0]
+    rms = [float(np.sqrt(((res["centers"] - p[None]) ** 2).mean(1)).min()) for p in CASES_PROTOS]
+    log(f"[cases] (e) sweep {CASES_RUNS} runs x 8736 h made in {data_s:.1f} s (host); k-means "
+        f"(k-means++ + 20 Lloyd steps, 2 restarts) over {kept} kept days in {km_s:.2f} s; "
+        f"prototype rms {[f'{v:.4f}' for v in rms]}")
+    if CASES_RUNS >= 10_000 and kept <= 2e6:
+        _cases_fail(f"(e) only {kept} kept days")
+    if max(rms) >= 0.05:
+        _cases_fail(f"(e) a latent prototype not recovered (rms {max(rms):.3f})")
+    trainer = TrainNNSurrogates(sd, {"cluster_centers": res["centers"]}, device=CASES_DEVICE)
+    t0 = time.perf_counter()
+    y = trainer.generate_label_data_frequency()
+    label_s = time.perf_counter() - t0
+    sums = float(np.abs(y.sum(1) - 1.0).max())
+    t0 = time.perf_counter()
+    sur_f, met_f = trainer.train_NN_frequency(hidden=(64, 64), epochs=150, lr=3e-3)
+    _csync()
+    freq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sur_r, met_r = trainer.train_NN_revenue(revenue, hidden=(64, 64), epochs=500, lr=3e-3)
+    _csync()
+    rev_s = time.perf_counter() - t0
+    r2f, r2r = np.asarray(met_f["R2"]), np.asarray(met_r["R2"])
+    log(f"[cases] (e) labels {label_s:.2f} s (rows sum to 1 within {sums:.1e}); training "
+        f"frequency (150 epochs) {freq_s:.2f} s, revenue (500 epochs) {rev_s:.2f} s; R2 "
+        f"frequency {np.round(r2f, 4).tolist()} (min {r2f.min():.4f}, mean {r2f.mean():.4f}), "
+        f"revenue {r2r.min():.5f}")
+    if not sums <= 1e-6:
+        _cases_fail(f"(e) frequency labels sum to 1 within {sums:.1e}")
+    if not (r2r.min() > 0.95 and r2f.min() > 0.6 and r2f.mean() > 0.75):
+        _cases_fail(f"(e) R2 below `tests/test_surrogate_scale.py`'s thresholds")
+    return dict(kmeans_s=km_s, label_s=label_s, train_freq_s=freq_s, train_rev_s=rev_s,
+                data_s=data_s, kept=kept, rms=rms, r2_freq=r2f.tolist(),
+                r2_rev=r2r.tolist()), (sur_r, sur_f, res["centers"])
+
+
+def _no_worse(tag, best, grid_best):
+    """A design's optimum against the best point of a brute-force grid over
+    its box (maximized NPV)."""
+    ok = best >= grid_best - 1e-6 * abs(grid_best)
+    log(f"[cases] (f) {tag}: optimum {best:.8e}, best grid point {grid_best:.8e}: "
+        f"{'no worse' if ok else 'WORSE'}")
+    if not ok:
+        _cases_fail(f"(f) {tag}: optimum {best} below the grid's {grid_best}")
+
+
+def _cases_designs(surrogates):
+    """(f) the designs that embed (e)'s networks, and ARMA."""
+    import dataclasses
+
+    from torch.func import vmap
+
+    from dispatches_tpu_torch.case_studies.nuclear import conceptual_design as NCD
+    from dispatches_tpu_torch.case_studies.rankine import surrogate_design as RS
+    from dispatches_tpu_torch.case_studies.renewables import conceptual_design as RCD
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.surrogates import surrogate_fn
+    from dispatches_tpu_torch.tea.arma import fit_arma, generate
+
+    dev, f64 = CASES_DEVICE, torch.float64
+    sur_r, sur_f, centers = surrogates
+    net_r, net_f = surrogate_fn(sur_r), surrogate_fn(sur_f)
+
+    def sweep_box(x, lo, hi):
+        """A design's 4 surrogate inputs mapped affinely onto the synthetic
+        sweep's input box (pmax 100-450 MW, the rest in [0, 1]), so that
+        (e)'s networks are evaluated where they were trained: input i runs
+        from lo[i] to hi[i] across the box."""
+        lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+        hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+        u = (x - lo_t) / (hi_t - lo_t)
+        scale = torch.tensor([350.0, 1.0, 1.0, 1.0], dtype=x.dtype, device=x.device)
+        shift = torch.tensor([100.0, 0.0, 0.0, 0.0], dtype=x.dtype, device=x.device)
+        return shift + scale * u
+
+    # the wind + PEM design's inputs: [PEM bid, PEM size x wind / 847 MW,
+    # reserve %, shortfall price]; the size first, as the sweep's pmax
+    re_lo, re_hi = [127.5, 15.0, 0.0, 0.0], [423.5, 45.0, 100.0, 1000.0]
+
+    def rev_fn(x):
+        return net_r(sweep_box(torch.stack([x[1], x[0], x[2], x[3]]), re_lo, re_hi))
+
+    def freq_fn(x):
+        return net_f(sweep_box(torch.stack([x[1], x[0], x[2], x[3]]), re_lo, re_hi))
+    # the frequency net's bins: zero days, the k clusters, full days
+    dis_cf = np.concatenate([[0.0], centers.mean(1), [1.0]])
+    d = RCD.ConceptualDesignInputs(dispatch_cf=dis_cf, pem_cf=np.full(dis_cf.size, 0.3),
+                                   wind_cf=np.clip(dis_cf + 0.2, 0.0, 1.0))
+    out = {}
+    t0 = time.perf_counter()
+    res = RCD.conceptual_design_dynamic_RE(d, rev_fn, freq_fn, device=dev)
+    out["re_s"] = time.perf_counter() - t0
+    log(f"[cases] (f) conceptual_design_dynamic_RE: converged {res['converged']} in "
+        f"{res['iterations']} iterations, {out['re_s']:.2f} s; PEM {res['pem_mw']:.2f} MW, "
+        f"bid {res['pem_bid']:.3f}, NPV {res['NPV']:.6e}")
+    sizes = torch.linspace(d.pem_cap_bounds_mw[0] * 1e3, d.pem_cap_bounds_mw[1] * 1e3, 61,
+                           dtype=f64, device=dev)
+    bids = torch.linspace(*d.pem_bid_bounds, 61, dtype=f64, device=dev)
+    S_, B_ = torch.meshgrid(sizes, bids, indexing="ij")
+    wind = torch.full_like(S_.reshape(-1), d.wind_mw * 1e3)
+    with torch.no_grad():
+        vals = vmap(lambda w, s, b: RCD._npv_terms(w, s, b, d, rev_fn, freq_fn))(
+            wind, S_.reshape(-1), B_.reshape(-1))
+    if not res["converged"]:
+        _cases_fail("(f) conceptual_design_dynamic_RE did not converge")
+    _no_worse("wind + PEM design (61 x 61 grid of size x bid)", res["NPV"], float(vals.max()))
+
+    free = dataclasses.replace(d, extant_wind=False)
+    bid_pts, mw_pts = np.linspace(20.0, 40.0, 4), np.linspace(150.0, 400.0, 4)
+    t0 = time.perf_counter()
+    sw = RCD.design_sweep(free, rev_fn, freq_fn, bid_pts, mw_pts, device=dev)
+    out["sweep_s"] = time.perf_counter() - t0
+    winds = torch.linspace(free.wind_cap_bounds_mw[0] * 1e3, free.wind_cap_bounds_mw[1] * 1e3,
+                           201, dtype=f64, device=dev)
+    g = torch.as_tensor(np.stack([sw["pem_bid"], sw["pem_mw"]], 1), dtype=f64, device=dev)
+    with torch.no_grad():
+        best = vmap(lambda p: vmap(lambda w: RCD._npv_terms(
+            w, p[1] * 1e3, p[0], free, rev_fn, freq_fn))(winds).max())(g).cpu().numpy()
+    log(f"[cases] (f) design_sweep 4 x 4 (bid, size), wind free, one solve_nlp_batch: "
+        f"{out['sweep_s']:.2f} s, converged {int(sw['converged'].sum())} of 16, wind "
+        f"{np.round(sw['wind_mw'], 1).tolist()} MW")
+    if not sw["converged"].all():
+        _cases_fail("(f) design_sweep lanes not converged")
+    worst = float(np.min((sw["NPV"] - best) / np.abs(best)))
+    _no_worse(f"design_sweep (each lane against 201 wind sizes; worst lane rel {worst:.2e})",
+              float(sw["NPV"][int(np.argmin((sw['NPV'] - best) / np.abs(best)))]),
+              float(best[int(np.argmin((sw['NPV'] - best) / np.abs(best)))]))
+
+    # the nuclear design's inputs: [threshold price, PEM/NPP ratio, reserve,
+    # max LMP]; the ratio first, as the sweep's pmax; the revenue network's
+    # output ($/yr of the sweep) stands for the NPP's electricity revenue
+    ne_lo, ne_hi = [0.05, 0.0, 0.0, 0.0], [0.5, 100.0, 100.0, 1000.0]
+
+    def ne_rev_fn(x):
+        return net_r(sweep_box(torch.stack([x[1], x[0], x[2], x[3]]), ne_lo, ne_hi))
+
+    def cf_fn(x):
+        return 0.98 - 0.5 * x[1]
+
+    t0 = time.perf_counter()
+    ne = NCD.conceptual_design_ss_NE(ne_rev_fn, cf_fn, h2_price=2.0, device=dev)
+    out["ne_s"] = time.perf_counter() - t0
+    rs = torch.linspace(*NCD.RATIO_BOUNDS, 2001, dtype=f64, device=dev)
+    with torch.no_grad():
+        nvals = vmap(lambda r: NCD.ne_objective(r, 2.0, 10.0, 500.0, ne_rev_fn, cf_fn)[0])(rs)
+    log(f"[cases] (f) conceptual_design_ss_NE (the revenue network, an analytic CF): ratio "
+        f"{float(ne.pem_np_cap_ratio):.4f}, objective {float(ne.objective):.6e} $, "
+        f"{out['ne_s']:.2f} s")
+    _no_worse("nuclear PEM sizing (2001 ratios; objective negated)", -float(ne.objective),
+              -float(nvals.min()))
+
+    def rv(inp):
+        return torch.reshape(0.5 * inp[0] - 0.05 * (inp[5] - 18.0) ** 2, (1,))
+
+    def ns(inp):
+        return torch.reshape(50.0 - 2.0 * inp[3], (1,))
+
+    def zf(inp):
+        return torch.linspace(2.0, 1.0, 11, dtype=inp.dtype, device=inp.device) * (1.0 + 0.001 * inp[0])
+
+    t0 = time.perf_counter()
+    rk = RS.conceptual_design_problem_nn(rv, ns, zf, device=dev)
+    out["rankine_s"] = time.perf_counter() - t0
+    terms, lo, hi = RS.market_design_problem(rv, ns, zf, device=dev)
+    axes = [torch.linspace(a, b, 9 if i == 0 else 3, dtype=f64, device=dev)
+            for i, (a, b) in enumerate(zip(lo, hi))]
+    pts = torch.cartesian_prod(*axes)
+    with torch.no_grad():
+        rvals = torch.cat([vmap(lambda x: terms(x)[0])(c) for c in pts.split(8192)])
+    log(f"[cases] (f) conceptual_design_problem_nn (analytic stand-ins): converged "
+        f"{rk['converged']} in {rk['iterations']} iterations, {out['rankine_s']:.2f} s; pmax "
+        f"{rk['pmax_mw']:.2f} MW, NPV {rk['obj_npv_usd']:.6e} $")
+    if not rk["converged"]:
+        _cases_fail("(f) conceptual_design_problem_nn did not converge")
+    _no_worse(f"Rankine market design ({pts.shape[0]}-point grid, $M)", rk["obj_npv_usd"] / 1e6,
+              float(rvals.max()))
+
+    series = np.resize(P.load_rts303()["da_lmp"], 8736)
+    t0 = time.perf_counter()
+    model = fit_arma(series, fourier_periods=CASES_ARMA_PERIODS)
+    fit_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    sims = generate(model, 8736, gen, n_realizations=CASES_ARMA, device=dev)
+    _csync()
+    gen_s = time.perf_counter() - t0
+    sims = sims.cpu().numpy()
+    mean_rel = abs(sims.mean() - series.mean()) / abs(series.mean())
+    spread = np.ptp(sims.reshape(CASES_ARMA, -1, 24).mean(axis=(0, 1)))
+    ref_spread = np.ptp(series.reshape(-1, 24).mean(0))
+    spread_rel = abs(spread - ref_spread) / ref_spread
+    log(f"[cases] (f) ARMA(2, 1) fit on rts303's DA LMPs (seasonal mean: 8 daily harmonics, "
+        f"weekly, annual) {fit_s:.2f} s; {CASES_ARMA} x 8736 h "
+        f"generated in {gen_s:.2f} s; mean {sims.mean():.3f} against {series.mean():.3f} "
+        f"(rel {mean_rel:.3f}), hour-of-day spread {spread:.3f} against {ref_spread:.3f} "
+        f"(rel {spread_rel:.3f})")
+    if not (mean_rel <= 0.10 and spread_rel <= 0.20 and np.isfinite(sims).all()):
+        _cases_fail(f"(f) ARMA realizations: mean rel {mean_rel:.3f}, spread rel {spread_rel:.3f}")
+    out.update(arma_fit_s=fit_s, arma_gen_s=gen_s, arma_mean_rel=mean_rel,
+               arma_spread_rel=spread_rel)
+    return out
+
+
+def phase_cases():
+    """The `cases` phase (see the module docstring), on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    out = {}
+    with ThreadPoolExecutor(2) as pool:  # HiGHS references beside the card's work
+        parts = (("flowsheet", _cases_flowsheet), ("nuclear", lambda: _cases_nuclear(pool)),
+                 ("solar", lambda: _cases_solar(pool)), ("tank", _cases_tank))
+        for key, part in parts:
+            t1 = time.perf_counter()
+            out[key] = part()
+            log(f"[cases] {key} in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["surrogates"], nets = _cases_surrogates()
+    log(f"[cases] surrogates in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["designs"] = _cases_designs(nets)
+    log(f"[cases] designs in {time.perf_counter() - t1:.1f} s")
+    log(f"[cases] chain_sweep launches: nuclear {out['nuclear']['launches']}, solar "
+        f"{out['solar']['launches']}; phase {time.perf_counter() - t0:.1f} s")
+    if _CASES_FAILS:
+        raise AssertionError(f"cases phase: {len(_CASES_FAILS)} gates failed: {_CASES_FAILS}")
+    return out
+
+
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
 PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
                   "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400,
-                  "plants": 600}
+                  "plants": 600, "cases": 400}
 
 
 def _guarded(name, fn):
@@ -3374,9 +4121,10 @@ def _guarded(name, fn):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market,plants",
+                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market,plants,"
+                    "cases",
                     help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
-                    "serve, market, plants (device and build always run)")
+                    "serve, market, plants, cases (device and build always run)")
     ap.add_argument("--cpu-tes-gradient", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cpu_tes_gradient:  # the plants phase's CPU reference child
@@ -3413,6 +4161,7 @@ def _run_phases(phases, t_start, child):
     serve = _guarded("serve", phase_serve) if "serve" in phases else {}
     market = _guarded("market", phase_market) if "market" in phases else {}
     plants = _guarded("plants", lambda: phase_plants(child)) if "plants" in phases else {}
+    cases = _guarded("cases", phase_cases) if "cases" in phases else {}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -3428,7 +4177,9 @@ def _run_phases(phases, t_start, child):
                              "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
                              "serve": serve.get("launches"),
                              "market": market.get("launches"),
-                             "plants": plants.get("chain_sweep_launches")},
+                             "plants": plants.get("chain_sweep_launches"),
+                             "cases_nuclear": cases.get("nuclear", {}).get("launches"),
+                             "cases_solar": cases.get("solar", {}).get("launches")},
         # the adaptive year batch's launches by chain count (compaction)
         "adaptive_launches_by_chains": adaptive.get("year", {}).get("launches_by_chains"),
         "max_abs_err": max_err,

@@ -54,22 +54,44 @@ def _t(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float64)
 
 
-def _coef(i, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_COEF[:, i], dtype=like.dtype, device=like.device)
+_COEF_CACHE: Dict[tuple, torch.Tensor] = {}
 
 
-def cp_mol(T):
-    """Molar heat capacity [J/mol/K] for all species, shape (..., 5)."""
-    t = _t(T)[..., None] / 1000.0
-    A, B, C, D, E = (_coef(i, t) for i in range(5))
+def _coefs(like: torch.Tensor, n: int, species=None):
+    """The first `n` Shomate coefficients (A, B, ...) in `like`'s dtype
+    and on its device: each a (5,) row over SPECIES, or a 0-dim tensor of
+    one species. One (8, 5) tensor is made per (dtype, device), so a call
+    on the card copies nothing from the host."""
+    key = (like.dtype, like.device)
+    coef = _COEF_CACHE.get(key)
+    if coef is None:
+        coef = _COEF_CACHE[key] = torch.as_tensor(_COEF.T.copy(), dtype=like.dtype,
+                                                  device=like.device)
+    if species is not None:
+        k = SPECIES.index(species)
+        return tuple(coef[i, k] for i in range(n))
+    return tuple(coef[i] for i in range(n))
+
+
+def _t_over_1000(T, species):
+    t = _t(T) / 1000.0
+    return t if species is not None else t[..., None]
+
+
+def cp_mol(T, species=None):
+    """Molar heat capacity [J/mol/K]: shape (..., 5) for all species, or
+    (...) for `species` alone (a name of SPECIES)."""
+    t = _t_over_1000(T, species)
+    A, B, C, D, E = _coefs(t, 5, species)
     return A + B * t + C * t**2 + D * t**3 + E / t**2
 
 
-def enth_mol(T):
-    """Molar enthalpy above the NIST reference [J/mol], shape (..., 5):
+def enth_mol(T, species=None):
+    """Molar enthalpy above the NIST reference [J/mol], shape (..., 5) or
+    (...) for `species` alone:
     1000 (A t + B t^2/2 + C t^3/3 + D t^4/4 - E/t + F - H), t = T/1000."""
-    t = _t(T)[..., None] / 1000.0
-    A, B, C, D, E, F, _, H = (_coef(i, t) for i in range(8))
+    t = _t_over_1000(T, species)
+    A, B, C, D, E, F, _, H = _coefs(t, 8, species)
     kj = A * t + B * t**2 / 2 + C * t**3 / 3 + D * t**4 / 4 - E / t + F - H
     return 1000.0 * kj
 
@@ -77,7 +99,7 @@ def enth_mol(T):
 def entr_mol(T, P=P_REF):
     """Standard molar entropy [J/mol/K] at T and pressure P, shape (..., 5)."""
     t = _t(T)[..., None] / 1000.0
-    A, B, C, D, E, _, G, _ = (_coef(i, t) for i in range(8))
+    A, B, C, D, E, _, G, _ = _coefs(t, 8)
     s0 = A * torch.log(t) + B * t + C * t**2 / 2 + D * t**3 / 3 - E / (2 * t**2) + G
     p = torch.as_tensor(P, dtype=t.dtype, device=t.device)
     return s0 - R_GAS * torch.log(p[..., None] / P_REF)

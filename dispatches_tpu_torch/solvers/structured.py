@@ -109,6 +109,8 @@ class TimeStructure:
     col_pos: np.ndarray  # reduced col -> flat position in [t-part | border]
     row_pos_flat: np.ndarray  # original row -> flat position in (Tb*mB)
     pad_rows: np.ndarray  # (Tb, mB) bool: padding rows (all-zero, b=0)
+    # (Tb, mB) bool: rows on border columns alone (no banded entry)
+    border_rows: np.ndarray = None
 
     # ------------------------------------------------------------------
     def instantiate(self, params: Dict, dtype=torch.float64, device="cuda") -> BandedLP:
@@ -215,8 +217,10 @@ def extract_time_structure(
             "at this block size"
         )
     row_tb = row_max
-    # slack columns inherit their row's block
-    col_tb[n_keep + np.arange(Mi)] = row_tb[Me + np.arange(Mi)]
+    # slack columns inherit their row's block; a row on border columns
+    # alone takes its slack to the border too, so that its banded row is
+    # empty (see `border_rows` below)
+    col_tb[n_keep + np.arange(Mi)] = np.where(untouched[Me:], -1, row_tb[Me:])
     assert not np.any(col_tb == -2), "unassigned columns"
 
     # ---- positions & padding ------------------------------------------
@@ -329,6 +333,12 @@ def extract_time_structure(
         u_b = np.ones(1)
 
     pad_rows = np.arange(mB)[None, :] >= row_counts[:, None]
+    # rows that touch no time-block column (a design variable pinned to a
+    # parameter, a ratio between two capacities) have no entry in the
+    # banded blocks
+    border_rows = np.zeros(Tb * mB, dtype=bool)
+    border_rows[row_pos_flat[np.nonzero(untouched)[0]]] = True
+    border_rows = border_rows.reshape(Tb, mB)
 
     return TimeStructure(
         prog=prog, T=T, block_hours=L, Tb=Tb, mB=mB, nB=nB, p=p,
@@ -338,6 +348,7 @@ def extract_time_structure(
         c_idx=c_idx, c_vals=c_vals, cb_idx=cb_idx, cb_vals=cb_vals,
         c_pgroups=c_pgroups, l_t=l_t, u_t=u_t, l_b=l_b, u_b=u_b,
         col_pos=col_pos, row_pos_flat=row_pos_flat, pad_rows=pad_rows,
+        border_rows=border_rows,
     )
 
 
@@ -515,7 +526,7 @@ def _slab_solve(f: _SlabFactors, r, inv=False, chain_int=None, chain_schur=None)
 def _banded_ops(
     Ad, As, Bb, Tb, mB, nB, p, reg_d, pad_rows=None, slabs=None,
     chol_dtype=None, kkt_refine=0, fac_d_cap=None, inv_factors=False,
-    sweep_backend="scan", factor_dtype=None,
+    sweep_backend="scan", factor_dtype=None, border_rows=None,
 ):
     """(matvec, rmatvec, make_kkt_solver) for `ipm._solve_scaled` over a
     batch: Ad, As (B, Tb, mB, nB), Bb (B, Tb, mB, p); flat vectors laid out
@@ -531,13 +542,32 @@ def _banded_ops(
     the barrier weights only inside the factorized preconditioner.
     `factor_dtype` (default `chol_dtype`) is the dtype the normal equations
     are built and factored in; the factors are then stored and swept in
-    `chol_dtype`."""
+    `chol_dtype`.
+
+    `border_rows` (Tb, mB) marks rows on border columns alone (their
+    slacks included). The banded part of K is zero there, and a Woodbury
+    update around its reg_d diagonal would divide by reg_d: such a row
+    gets a unit diagonal in the banded factorization (as a padding row
+    does), the Woodbury update sees only the other rows' border entries,
+    and the rows themselves are solved last, through an r x r system in
+    the border columns' capacitance (r the number of such rows). Without
+    them the solve is the plain Woodbury one."""
     dtype, device = Ad.dtype, Ad.device
     B = Ad.shape[0]
     nt = Tb * nB
     diag_vec = torch.full((Tb, mB), float(reg_d), dtype=dtype, device=device)
     if pad_rows is not None:
         diag_vec = diag_vec + torch.as_tensor(np.asarray(pad_rows), dtype=dtype, device=device)
+    rows_R = None
+    if border_rows is not None and np.asarray(border_rows).any():
+        diag_vec = diag_vec + torch.as_tensor(np.asarray(border_rows), dtype=dtype, device=device)
+        rows_R = torch.as_tensor(np.nonzero(np.asarray(border_rows).reshape(-1))[0],
+                                 device=device)
+        Bb_T = Bb.clone()
+        Bb_T.reshape(B, Tb * mB, p)[:, rows_R] = 0.0
+        B_R = Bb.reshape(B, Tb * mB, p)[:, rows_R]  # (B, r, p)
+    else:
+        Bb_T = Bb
     AdT, AsT = Ad.transpose(-1, -2), As.transpose(-1, -2)
 
     def matvec(x):
@@ -631,18 +661,43 @@ def _banded_ops(
             base = chol_base
 
         # Woodbury: K = Kb + B diag(wb) B^T
-        Z = base(Bb)  # (B, Tb, mB, p) = Kb^{-1} B
+        Z = base(Bb_T)  # (B, Tb, mB, p) = Kb^{-1} B
         Sm = torch.diag_embed(db) + (
-            Bb.reshape(B, Tb * mB, p).transpose(-1, -2) @ Z.reshape(B, Tb * mB, p)
+            Bb_T.reshape(B, Tb * mB, p).transpose(-1, -2) @ Z.reshape(B, Tb * mB, p)
         )
         S_L = _chol(Sm, symmetrize=False)
 
+        if rows_R is None:
+            def solve(r):
+                rt = r.reshape(B, Tb, mB)
+                Fr = base(rt)
+                rhs = (Bb * Fr[..., None]).sum(dim=(1, 2))
+                t = torch.cholesky_solve(rhs[..., None], S_L)[..., 0]
+                return (Fr - (Z @ t[:, None, :, None])[..., 0]).reshape(B, Tb * mB)
+
+            return solve
+
+        # the border-only rows R: with z = W B^T y the R equations read
+        # B_R z + reg_d y_R = r_R, and z = S^-1 (B_T^T Kb^-1 r_T + B_R^T y_R)
+        # (S the capacitance above), so y_R solves the r x r system
+        # (B_R S^-1 B_R^T + reg_d) y_R = r_R - B_R S^-1 B_T^T Kb^-1 r_T: a sum
+        # of positive terms, never a difference of near-equal ones
+        X_R = torch.cholesky_solve(B_R.transpose(-1, -2), S_L)  # (B, p, r)
+        M_R = B_R @ X_R
+        M_R = M_R + reg_d * torch.eye(M_R.shape[-1], dtype=dtype, device=device)
+        M_L = _chol(M_R)
+
         def solve(r):
-            rt = r.reshape(B, Tb, mB)
-            Fr = base(rt)
-            rhs = (Bb * Fr[..., None]).sum(dim=(1, 2))
-            t = torch.cholesky_solve(rhs[..., None], S_L)[..., 0]
-            return (Fr - (Z @ t[:, None, :, None])[..., 0]).reshape(B, Tb * mB)
+            r0 = r.clone()
+            r0[:, rows_R] = 0.0
+            Fr = base(r0.reshape(B, Tb, mB))
+            u = torch.cholesky_solve((Bb_T * Fr[..., None]).sum(dim=(1, 2))[..., None], S_L)
+            rhs = r[:, rows_R, None] - B_R @ u
+            y_R = torch.cholesky_solve(rhs, M_L)
+            z = u + X_R @ y_R
+            y = (Fr - (Z @ z[:, None])[..., 0]).reshape(B, Tb * mB)
+            y[:, rows_R] = y_R[..., 0]
+            return y
 
         return solve
 
@@ -721,7 +776,8 @@ def _solve_banded(
 
     ops = _banded_ops(
         Ad_s, As_s, Bb_s, Tb, mB, nB, p, reg_d,
-        pad_rows=meta.pad_rows, slabs=slabs, chol_dtype=chol_dtype,
+        pad_rows=meta.pad_rows, border_rows=meta.border_rows, slabs=slabs,
+        chol_dtype=chol_dtype,
         kkt_refine=kkt_refine, fac_d_cap=fac_d_cap, inv_factors=inv_factors,
         sweep_backend=sweep_backend, factor_dtype=factor_dtype,
     )
@@ -904,6 +960,34 @@ def solve_lp_banded_batch(
     opts = _options(meta, blp.Ad.dtype, **kw)
     warm = _warm_tensors(warm_start, blp.b)
     return _returned(_solve_banded(meta, blpb, warm_start=warm, **opts), opts)
+
+
+# the iteration from which `solve_lp_banded_escalated` keeps float64 factors
+ESCALATE_AT_ITER = 16
+
+
+def solve_lp_banded_escalated(meta: TimeStructure, blp: BandedLP, **kw):
+    """`solve_lp_banded_batch` with a precision schedule: the options `kw`
+    (e.g. `workflow.runners.year_sweep_solver_kw`: f32 factors swept by the
+    fused kernel) for the first `ESCALATE_AT_ITER` iterations, then the same
+    iterate resumed with float64 factors and sweeps (the scan), in the same
+    SPIKE slabs.
+
+    For LPs whose normal equations grow too ill-conditioned near the
+    optimum for f32-stored factors to precondition (the solar-hydrogen
+    year LP: its degenerate design columns stall the mixed tier at a
+    scaled gap of ~1e-3), while the early iterations keep the kernel.
+    Every lane resumes from its best iterate of the first segment, so a
+    lane that stopped there (a stall, or a step away from its best) goes
+    on from where the mixed tier was last sound."""
+    if kw.get("state") is not None or kw.get("return_state"):
+        raise ValueError("solve_lp_banded_escalated manages the state itself")
+    _, st = solve_lp_banded_batch(meta, blp, it_stop=ESCALATE_AT_ITER, return_state=True, **kw)
+    exact = {k: kw[k] for k in ("tol", "max_iter", "reg_p", "reg_d", "refine_steps",
+                                "correctors", "d_cap", "slabs") if k in kw}
+    st = st._replace(x=st.best_x, y=st.best_y, zl=st.best_zl, zu=st.best_zu,
+                     done=torch.zeros_like(st.done))
+    return solve_lp_banded_batch(meta, blp, state=st, **exact)
 
 
 def optimal_value_banded(

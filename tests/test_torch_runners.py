@@ -83,7 +83,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     sources += [ROOT / "chip_smoke.py"] + [
         ROOT / "tools" / f"{name}.py"
-        for name in ("torch_replay_solve", "torch_serve_dispatch", "torch_loadgen")
+        for name in ("torch_replay_solve", "torch_serve_dispatch", "torch_loadgen",
+                     "torch_banded_precision")
     ]
     assert len(sources) > 10
     found = {p.relative_to(ROOT).as_posix() for p in sources}
@@ -101,6 +102,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "units/concrete_tes", "case_studies/fossil/scpc_nlp",
                  "case_studies/fossil/multiperiod", "case_studies/fossil/pricetaker",
                  "case_studies/fossil/superstructure", "_nvcc"):
+        assert f"dispatches_tpu_torch/{name}.py" in found, name
+    # the nuclear and solar-hydrogen cases, the detailed tank and the
+    # market-surrogate pillar
+    for name in ("mp/multiperiod", "units/tank_detailed", "case_studies/nuclear/__init__",
+                 "case_studies/nuclear/flowsheet", "case_studies/nuclear/pricetaker",
+                 "case_studies/nuclear/multiperiod", "case_studies/nuclear/tea",
+                 "case_studies/nuclear/conceptual_design",
+                 "case_studies/renewables/solar_hydrogen",
+                 "case_studies/renewables/conceptual_design",
+                 "case_studies/rankine/surrogate_design", "tea/npv", "tea/arma",
+                 "tea/syn_hist", "surrogates/__init__", "surrogates/clustering",
+                 "surrogates/data", "surrogates/train", "surrogates/embed"):
         assert f"dispatches_tpu_torch/{name}.py" in found, name
     assert (ROOT / "dispatches_tpu_torch" / "csrc" / "tes_chain.cu").exists()
     bad = re.compile(
