@@ -250,9 +250,16 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   tolerances; the kernel against `_tes_chain_plain` on the
                   card on the combined hour's first pass (h_out within 1e-9
                   of each segment's starting bracket, weights equal where
-                  the outlets agree), times a pass and an hour beside the
-                  throughput bound and the dependent chain's latency bound
-                  (from `tools/latency_probe.cu`'s measured latencies); the
+                  the outlets agree); the kernel at every swept `levels`
+                  bitwise itself at levels 1 (the serial bisection) on
+                  that pass and on one whose brackets straddle the
+                  plateau; the store-hour walls beside the serial kernel's
+                  recorded ones, and a profiled combined hour (device busy
+                  share, the kernel's device ms against the other
+                  kernels'); each levels' ms a pass, rounds, the design's
+                  latency bound and share, beside the serial bound (from
+                  `tools/latency_probe.cu`'s measured latencies) and the
+                  throughput bound of the serial path's work; the
                   stored-energy gradient in the charge flow:
                   finite, > 0, within rel 1e-6 of the CPU child's;
               (d) SCPC: design 692 +- 1 MW, `solve_scpc_with_tes` 625 +- 1
@@ -411,10 +418,20 @@ LATENCY_PROBE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"
                              "latency_probe.cu")
 
 
-def _latency_ns(k=1 << 18):
-    """Dependent latency [ns] of an f64 division, of one level of the warp
-    butterfly (shuffle + add) and of an f64 add, at the card's running
-    clock: `tools/latency_probe.cu`, k dependent repetitions in one warp."""
+# `tools/latency_probe.cu`'s ops: (op, name, d, repetitions)
+LATENCY_OPS = ((0, "div", 1.5, 1 << 18), (1, "shfl_add", 0.0, 1 << 18), (2, "add", 0.0, 1 << 18),
+               (3, "newton1", 1.0e6, 1 << 15), (4, "newton2", 3.0e6, 1 << 15),
+               (5, "ladder", 1.0, 1 << 18), (6, "plateau_step", 1.4e6, 1 << 18),
+               (7, "round_sync", 1.5e6, 1 << 15))
+
+
+def _latency_ns():
+    """Dependent latency [ns] of the tes_chain kernel's steps at the card's
+    running clock (`tools/latency_probe.cu`, k dependent repetitions): an
+    f64 division, one level of the warp butterfly (shuffle + add), an f64
+    add, a full region-1 and region-2 Newton step as the kernel runs them,
+    the power ladder alone, a bisection step on the plateau, and a round's
+    sign exchange at 31 warps."""
     import ctypes
 
     from dispatches_tpu_torch import _nvcc
@@ -426,7 +443,7 @@ def _latency_ns(k=1 << 18):
     out = torch.empty(32, dtype=torch.float64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ns = {}
-    for op, name, d in ((0, "div", 1.5), (1, "shfl_add", 0.0), (2, "add", 0.0)):
+    for op, name, d, k in LATENCY_OPS:
         if lib.latency_probe(op, 1024, d, out.data_ptr(), stream) != 0:
             raise RuntimeError(f"latency probe {name} did not launch")
         ms = _time_ms(lambda: lib.latency_probe(op, k, d, out.data_ptr(), stream), 3)
@@ -2470,9 +2487,10 @@ def _market_rows_gates(tag, rows, n_hours):
     return shed, lmps
 
 
-def _profile_single_lps(fns):
-    """One profiled window over single-LP solves: launches per LP and the
-    device-busy share."""
+def _profile_single_lps(fns, kernel=None):
+    """One profiled window over single-LP solves (or any calls `fns`):
+    launches and the device-busy share; with `kernel`, also the device ms
+    and launches of the kernels whose name holds that string."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:  # warm
@@ -2484,7 +2502,7 @@ def _profile_single_lps(fns):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, launches, syncs = 0.0, 0, 0
+    dev_us, launches, syncs, k_us, k_launches = 0.0, 0, 0, 0.0, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -2492,11 +2510,17 @@ def _profile_single_lps(fns):
                 us = getattr(e, "self_cuda_time_total", 0.0)
             dev_us += us
             launches += e.count
+            if kernel is not None and kernel in e.key:
+                k_us += us
+                k_launches += e.count
         elif e.key == "aten::_local_scalar_dense":
             syncs += e.count
     busy = dev_us / 1e6 / wall if wall else float("nan")
-    return dict(wall_s=wall, device_busy=busy, launches=launches, scalar_reads=syncs,
-                device_ms=dev_us / 1e3)
+    out = dict(wall_s=wall, device_busy=busy, launches=launches, scalar_reads=syncs,
+               device_ms=dev_us / 1e3)
+    if kernel is not None:
+        out.update(kernel_ms=k_us / 1e3, kernel_launches=k_launches)
+    return out
 
 
 def _market_doubleloop():
@@ -2830,6 +2854,13 @@ TES_GOLDENS = ("INIT_T", "EXP_CHARGE_WALL_P1", "EXP_CHARGE_WALL_P2", "EXP_CHARGE
 TES_CHARGE = (0.00958 * 1000 / 18.01528 * 1e4, 19.6e6, 865.0)
 TES_DISCHARGE = (3 / 18.01528 * 1e4, 8.5e5, 355.0)
 TES_GRAD_FLOW = 5317.0  # `tests/test_concrete_tes.py:178`
+# (c): the chain kernel's halvings a round timed in turns (a cluster of 1, 1,
+# 2, 4, 8, 8 blocks a lane), every one held bitwise to levels 1
+TES_LEVELS_SWEEP = (1, 3, 4, 5, 6, 7)
+# (c): the store-hour walls of the serial kernel (one warp a lane, a halving at
+# a time) in this script's plants (c), as PERF.md §2 records them
+TES_HOURS_EARLIER = ("the serial kernel's (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §2): "
+                     "charge 0.478 s, discharge 0.310 s, combined 0.439 s")
 
 
 def _plants_fail(msg):
@@ -3071,7 +3102,7 @@ def _plants_tes(grad_child):
     """(c) the concrete store at the reference geometry through the kernel."""
     from dispatches_tpu_torch.properties.steam import sat_temperature
     from dispatches_tpu_torch.units.concrete_tes import (
-        ConcreteTES, TESDesign, _tes_chain_plain, stream_from_pt, tes_chain,
+        CHAIN_LEVELS, NEWTON_ITERS, ConcreteTES, TESDesign, _tes_chain_plain, stream_from_pt, tes_chain,
     )
 
     gold = _tes_goldens()
@@ -3134,6 +3165,23 @@ def _plants_tes(grad_child):
     wall_g = time.perf_counter() - t0
     main_launches = tes_chain.launches
 
+    levels = CHAIN_LEVELS
+    log(f"[plants] (c) store-hour walls at levels {levels}: charge {wall_c:.3f} s, discharge "
+        f"{wall_d:.3f} s, combined {wall_m:.3f} s; {TES_HOURS_EARLIER}")
+    # where a combined hour's time goes: one profiled hour (after a warm one),
+    # the chain kernel's device time against all device time and the wall;
+    # these launches are not the main path's
+    prof = _profile_single_lps(
+        [lambda: hour("combined", charge=stream(TES_CHARGE), discharge=stream(TES_DISCHARGE))],
+        kernel="tes_chain_kernel")
+    prof["idle"] = 1.0 - prof["device_busy"]
+    log(f"[plants] (c) profiled combined hour: wall {prof['wall_s']:.3f} s (under the profiler), "
+        f"device busy {prof['device_busy']:.3f} (idle {prof['idle']:.3f}), device time "
+        f"{prof['device_ms']:.1f} ms in {prof['launches']} launches, of which tes_chain "
+        f"{prof['kernel_ms']:.1f} ms in {prof['kernel_launches']}; other kernels "
+        f"{prof['device_ms'] - prof['kernel_ms']:.1f} ms; host reads of device scalars "
+        f"{prof['scalar_reads']}")
+
     # the kernel against the plain chain on identical inputs: the combined
     # hour's first pass (two lanes); these launches are not the main path's
     tw, h_eq, par = _tes_pass_inputs(init, [(TES_CHARGE, "charge"), (TES_DISCHARGE, "discharge")])
@@ -3143,8 +3191,9 @@ def _plants_tes(grad_child):
     ref, a_ref = _tes_chain_plain(tw, h_eq, par)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    # the Newton steps this data needs, per lane, counted by a CPU replay of the chain
-    _, _, (n_liq, n_vap) = _tes_chain_plain(tw.cpu(), h_eq.cpu(), par.cpu(), count=True)
+    sweep_levels = sorted({*TES_LEVELS_SWEEP, levels})
+    # the work this data needs at each levels, per lane, counted by a CPU replay
+    _, _, work = _tes_chain_plain(tw.cpu(), h_eq.cpu(), par.cpu(), count_levels=sweep_levels)
     lat_ns = _latency_ns()
     h_in = torch.cat([par[:, :1], ref[:, :-1]], -1)
     width = (h_in - h_eq).abs()
@@ -3160,41 +3209,100 @@ def _plants_tes(grad_child):
         _plants_fail(f"(c) kernel vs plain: h_out off by {rel_w:.2e} of the bracket (1e-9)")
     if not a_ok:
         _plants_fail(f"(c) kernel vs plain: weights {a_diff:.2e} apart where the outlets agree")
-    ms = _time_ms(lambda: tes_chain(tw, h_eq, par), 20)
+
+    # the midpoint tree against the serial bisection (levels = 1), bitwise, on
+    # this pass and on one whose brackets straddle the plateau (walls 750 ->
+    # 420 K: the discharge side at 8.5e5 Pa starts liquid and ends in vapour)
+    walls = torch.linspace(750.0, 420.0, D.num_segments, **dev)
+    straddle = _tes_pass_inputs(walls, [(TES_CHARGE, "charge"), (TES_DISCHARGE, "discharge")])
+    s_tw, s_heq, s_par = straddle
+    s_ref, _ = tes_chain(s_tw, s_heq, s_par, levels=1)
+    s_in = torch.cat([s_par[:, :1], s_ref[:, :-1]], -1)
+    s_lo, s_hi = torch.minimum(s_in, s_heq), torch.maximum(s_in, s_heq)
+    spans = ((s_lo < s_par[:, 4:5]) & (s_hi > s_par[:, 5:6])).sum(-1)
+    if not bool((spans > 0).all()):
+        _plants_fail(f"(c) the straddling input spans the plateau in {spans.tolist()} segments a lane")
+    for tag, inputs in (("first pass", (tw, h_eq, par)), ("straddling pass", straddle)):
+        h1, a1 = tes_chain(*inputs, levels=1)
+        for m in sweep_levels:
+            hm, am = tes_chain(*inputs, levels=m)
+            if not (torch.equal(hm, h1) and torch.equal(am, a1)):
+                _plants_fail(f"(c) {tag}: levels {m} not bitwise levels 1 (h_out "
+                             f"{int((hm != h1).sum())}, a {int((am != a1).sum())} of {h1.numel()} differ)")
+    log(f"[plants] (c) midpoint tree vs serial bisection: levels {sweep_levels} bitwise levels 1 "
+        f"on the first pass and on the straddling pass (segments spanning [h_f, h_g] a lane: "
+        f"{spans.tolist()})")
+
+    # times a pass at each levels, in turns (median of 3 turns of 10)
+    turns = {m: [] for m in sweep_levels}
+    for _ in range(3):
+        for m in sweep_levels:
+            turns[m].append(_time_ms(lambda: tes_chain(tw, h_eq, par, levels=m), 10))
+    times = {m: float(np.median(v)) for m, v in turns.items()}
+    ms = times[levels]
     on_plateau = (ref > par[:, 4:5]) & (ref < par[:, 5:6])
+    # the latency bound: each Newton step at least its shortest dependent
+    # path in the kernel, tau = T*/T (a division), one 5-level shuffle-add
+    # butterfly (the two sums reduce side by side), the update's division and
+    # its add; the powers, products, clamps and the rounds' exchange are left
+    # out, so the bound is low. The design's bound on a lane: its rounds with
+    # a point off the plateau x 12 steps, plus the halvings of its
+    # plateau-only rounds x a plateau bisection step; the longest lane's.
+    # The serial bound: the serial path's Newton steps x the step.
+    step_ns = 2 * lat_ns["div"] + 5 * lat_ns["shfl_add"] + lat_ns["add"]
+
+    def design_bound(w):
+        lane_ns = (w.newton_rounds * NEWTON_ITERS * step_ns
+                   + w.plateau_halvings * lat_ns["plateau_step"])
+        return float(lane_ns.max()) * 1e-6
+
+    serial = work[1]
+    path_steps = int((serial.region1 + serial.region2).max())
+    serial_bound = path_steps * step_ns * 1e-6
+    sweep = {}
+    for m in sweep_levels:
+        w, t = work[m], times[m]
+        row = sweep[m] = dict(
+            ms=t, rounds=int(w.rounds.max()), newton_rounds=int(w.newton_rounds.max()),
+            latency_bound_ms=design_bound(w), share_of_latency_bound=design_bound(w) / t)
+        log(f"[plants] (c) tes_chain levels {m}: {t:.4f} ms a pass ({row['rounds']} "
+            f"rounds a lane, {row['newton_rounds']} with a Newton point on the longest); "
+            f"design's latency bound {row['latency_bound_ms']:.4f} ms, share "
+            f"{row['share_of_latency_bound']:.3f}; serial bound {serial_bound:.4f} ms; "
+            f"{t * 1e6 / max(row['newton_rounds'] * NEWTON_ITERS, 1):.0f} ns a Newton step "
+            f"of a round")
+    latency_bound = sweep[levels]["latency_bound_ms"]
     # the throughput bound: a Newton step's operations are, per term of the
     # two tau-derivative sums, two powers, two products and two adds (region
     # 1: 34 terms, region 2: 43 + 9), and ~12 for tau, the enthalpy, cp and
-    # the update
-    flops = int(n_liq.sum()) * (6 * 34 + 12) + int(n_vap.sum()) * (6 * 52 + 12)
-    steps = int((n_liq + n_vap).sum())
+    # the update. The function needs the serial path's steps only; the tree
+    # points the kernel evaluates beyond them are speculative work, counted
+    # apart (`evaluated_newton_steps`)
+    w = work[1]
+    flops = int(w.region1.sum()) * (6 * 34 + 12) + int(w.region2.sum()) * (6 * 52 + 12)
+    steps = int((w.region1 + w.region2).sum())
+    evaluated = int((work[levels].region1 + work[levels].region2).sum())
     bound_ops = flops / F64_FLOPS_PER_S * 1e3
     bytes_moved = 8 * (tw.numel() + h_eq.numel() + par.numel() + 2 * got.numel())
     bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound, by = (bound_ops, "operations") if bound_ops >= bound_bytes else (bound_bytes, "bytes")
-    # the latency bound of the dependent chain: the lanes run side by side,
-    # so the longest lane's Newton steps, each at least its shortest
-    # dependent path in the kernel: tau = T*/T (a division), one 5-level
-    # shuffle-add butterfly (the two sums reduce side by side), the update's
-    # division and its add. The powers, products, clamps and the bisection's
-    # own steps are left out, so the bound is low.
-    path_steps = int((n_liq + n_vap).max())
-    step_ns = 2 * lat_ns["div"] + 5 * lat_ns["shfl_add"] + lat_ns["add"]
-    latency_bound = path_steps * step_ns * 1e-6
     passes = combined_launches
     log(f"[plants] (c) kernel vs plain (2 lanes x 20 segments): max |h_out diff| {max_err:.3e} J/kg "
         f"({rel_w:.2e} of the bracket), bitwise-equal outlets {int(same.sum())}/{same.numel()}, "
         f"weights there within {a_diff:.2e} (1e-9), bitwise {bool(torch.equal(a[same], a_ref[same]))}; "
         f"outlets on the plateau {int(on_plateau.sum())}")
-    log(f"[plants] (c) tes_chain: {ms:.3f} ms a pass ({ms * passes:.1f} ms of kernel an hour at "
-        f"{passes} launches); plain {plain_ms:.1f} ms a pass ({plain_ms * passes / 1e3:.1f} s an "
-        f"hour, {passes} x the pass); throughput bound {bound:.5f} ms ({by}: {steps} Newton "
-        f"steps ({int(n_liq.sum())} region 1, {int(n_vap.sum())} region 2), {flops} flops "
-        f"at the f64 rate; {bytes_moved} bytes); latency bound {latency_bound:.4f} ms "
-        f"({path_steps} Newton steps on the longest lane x {step_ns:.1f} ns: division "
-        f"{lat_ns['div']:.2f}, shuffle + add {lat_ns['shfl_add']:.2f}, add {lat_ns['add']:.2f} "
-        f"ns, measured), share {latency_bound / ms:.3f}; {ms * 1e6 / path_steps:.0f} ns a "
-        f"dependent Newton step; library: none")
+    log(f"[plants] (c) probe (ns, dependent): " + ", ".join(f"{k} {v:.2f}" for k, v in lat_ns.items()))
+    log(f"[plants] (c) tes_chain at levels {levels}: {ms:.4f} ms a pass ({ms * passes:.1f} ms of "
+        f"kernel an hour at {passes} launches); plain {plain_ms:.1f} ms a pass "
+        f"({plain_ms * passes / 1e3:.1f} s an hour, {passes} x the pass); throughput bound "
+        f"{bound:.5f} ms ({by}: {steps} Newton steps the function needs ({int(w.region1.sum())} "
+        f"region 1, {int(w.region2.sum())} region 2), {flops} flops at the f64 rate; "
+        f"{bytes_moved} bytes; the tree evaluates {evaluated} at levels {levels}); "
+        f"design's latency bound {latency_bound:.4f} ms, share {latency_bound / ms:.3f} "
+        f"(step floor {step_ns:.1f} ns: division {lat_ns['div']:.2f}, shuffle + add "
+        f"{lat_ns['shfl_add']:.2f}, add {lat_ns['add']:.2f} ns; plateau step "
+        f"{lat_ns['plateau_step']:.2f} ns); serial latency bound {serial_bound:.4f} ms "
+        f"({path_steps} Newton steps on the serial path of the longest lane); library: none")
 
     tes_chain.launches = main_launches
     t0 = time.perf_counter()
@@ -3213,7 +3321,10 @@ def _plants_tes(grad_child):
     return dict(hour_s={"charge": wall_c, "discharge": wall_d, "combined": wall_m},
                 launches_per_hour={"charge": hour_launches, "combined": combined_launches},
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=max_err,
-                latency_bound_ms=latency_bound, latency_ns=lat_ns, path_newton_steps=path_steps,
+                latency_bound_ms=latency_bound, serial_latency_bound_ms=serial_bound,
+                latency_ns=lat_ns, path_newton_steps=path_steps, levels=levels,
+                levels_sweep=sweep, evaluated_newton_steps=evaluated,
+                needed_newton_steps=steps, hour_profile=prof,
                 rel_of_bracket=rel_w, grad=grad, grad_cpu=cpu["grad"], grad_wall_s=wall_g)
 
 
@@ -4210,12 +4321,20 @@ def _run_phases(phases, t_start, child):
         # one fluid pass at the reference geometry, both sides as two lanes
         "ms": tes.get("ms"),
         "plain_ms": tes.get("plain_ms"),
-        "bound_ms": tes.get("bound_ms"),  # the throughput bound (roofline)
+        # the throughput bound (roofline) of the serial path's Newton steps,
+        # the work the function needs; the tree's evaluated steps beside it
+        "bound_ms": tes.get("bound_ms"),
         "bound_by": tes.get("bound_by"),
+        "needed_newton_steps": tes.get("needed_newton_steps"),
+        "evaluated_newton_steps": tes.get("evaluated_newton_steps"),
         "library_ms": None,
-        # the dependent chain's latency bound and the kernel's share of it
+        # the design's latency bound (rounds of the midpoint tree) and the
+        # kernel's share of it; the bound of the serial path beside it
+        "levels": tes.get("levels"),
         "latency_bound_ms": tes.get("latency_bound_ms"),
         "share_of_latency_bound": (tes["latency_bound_ms"] / tes["ms"]) if tes else None,
+        "serial_latency_bound_ms": tes.get("serial_latency_bound_ms"),
+        "levels_sweep": tes.get("levels_sweep"),
         "latency_ns": tes.get("latency_ns"),
         "shape": [2, 20],
     }

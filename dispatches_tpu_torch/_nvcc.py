@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,12 +27,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _text(src: Path, seen=None) -> bytes:
+    """The source's bytes and those of the local headers it includes
+    (``#include "..."``, relative to the including file), recursively."""
+    seen = set() if seen is None else seen
+    if src in seen:
+        return b""
+    seen.add(src)
+    data = src.read_bytes()
+    for name in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', data, re.M):
+        data += _text((src.parent / name.decode()).resolve(), seen)
+    return data
+
+
 def build(source: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<source>`` (or ``source``, where it is an absolute
     path) and return the shared library's path; a library built from the
-    same source and flags is reused."""
+    same source, local headers and flags is reused."""
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(_text(src) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if out.exists():
         return out

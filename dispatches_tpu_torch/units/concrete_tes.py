@@ -140,36 +140,75 @@ class SegmentProfile(NamedTuple):
 
 
 # ------------------------------------------------------------ the chain
+# the kernel's default halvings a round (`tes_chain`'s `levels`): 63 tree
+# points a round on a cluster of 8 blocks a lane, the fastest of the levels
+# `chip_smoke.py` plants (c) times on the card (PERF.md §6)
+CHAIN_LEVELS = 6
+# the largest `levels`, csrc/tes_chain.cu's MAX_LEVELS (a test holds the two
+# equal); checked here too, since a CPU tensor never reaches the kernel
+MAX_LEVELS = 7
+
+
+class ChainWork(NamedTuple):
+    """The work of one pass of the chain kernel at `levels` halvings a
+    round, per lane ((L,) tensors), counted from the data: every round
+    evaluates f at the 2^depth - 1 points of its midpoint tree."""
+
+    region1: torch.Tensor  # Newton steps in region 1, over every point evaluated
+    region2: torch.Tensor  # the same in region 2
+    rounds: torch.Tensor  # rounds over all segments
+    newton_rounds: torch.Tensor  # rounds with a point off the plateau
+    plateau_halvings: torch.Tensor  # halvings of the rounds with every point on it
+
+
+def _tree_points(lo, hi, depth):
+    """The midpoints a round of `depth` halvings from (lo, hi) may take,
+    (L, 2^depth - 1), by the serial loop's own expressions."""
+    left, right, mids = lo[:, None], hi[:, None], []
+    for _ in range(depth):
+        mid = 0.5 * (left + right)
+        mids.append(mid)
+        left, right = torch.cat([left, mid], -1), torch.cat([mid, right], -1)
+    return torch.cat(mids, -1)
+
+
 @torch.no_grad()
-def _tes_chain_plain(t_wall, h_eq, par, bisect_iters: int = 48, count: bool = False):
+def _tes_chain_plain(t_wall, h_eq, par, bisect_iters: int = 48, count_levels=()):
     """Plain PyTorch version of the chain kernel, the same chain in eager
-    ops over the lanes. t_wall, h_eq: (L, S) in walk order; par: (L, 6)
-    per lane (h_in0, c, P, T_sat, h_f, h_g). Returns (h_out, a), (L, S);
-    with `count`, also the Newton steps the data needs in region 1 and in
-    region 2 (a bisection step on the plateau takes none), each an (L,)
-    tensor of the lanes' counts."""
+    ops over the lanes, one halving at a time (the kernel takes `levels` of
+    them a round; its results do not depend on that number). t_wall, h_eq:
+    (L, S) in walk order; par: (L, 6) per lane (h_in0, c, P, T_sat, h_f,
+    h_g). Returns (h_out, a), (L, S); with `count_levels`, also {m:
+    ChainWork} for each m in it (a point on the plateau takes no Newton
+    step)."""
     h_in, c, P, Tsat, hf, hg = par.unbind(-1)
-    n_liq = n_vap = 0
+    zero = torch.zeros_like(h_in, dtype=torch.long)
+    work = {m: [zero] * 5 for m in count_levels}
     pre_l, pre_v = steam._liquid_pre(P), steam._vapor_pre(P)
     outs, weights = [], []
     for s in range(t_wall.shape[-1]):
         tw, he = t_wall[:, s], h_eq[:, s]
         lo, hi = torch.minimum(h_in, he), torch.maximum(h_in, he)
         wl, wh = torch.ones_like(lo), torch.zeros_like(lo)
-        for _ in range(bisect_iters):
+        for it in range(bisect_iters):
+            for m, w in work.items():
+                if it % m == 0:  # a round starts here
+                    depth = min(m, bisect_iters - it)
+                    pts = _tree_points(lo, hi, depth)
+                    liq, vap = pts <= hf[:, None], pts >= hg[:, None]
+                    off = (liq | vap).any(-1)
+                    w[:] = [w[0] + NEWTON_ITERS * liq.sum(-1), w[1] + NEWTON_ITERS * vap.sum(-1),
+                            w[2] + 1, w[3] + off.long(), w[4] + depth * (~off).long()]
             mid = 0.5 * (lo + hi)
             wm = 0.5 * (wl + wh)
             # T(P, mid) as `steam._t_of_h_pre`, but a region no lane is in
-            # is skipped, as the kernel's warp skips it
+            # is skipped, as the kernel's warps skip it
             liq, vap = mid <= hf, mid >= hg
             T = Tsat
             if bool(liq.any()):
                 T = torch.where(liq, steam._t_liquid_pre(pre_l, mid, hf, NEWTON_ITERS), T)
             if bool(vap.any()):
                 T = torch.where(vap, steam._t_vapor_pre(pre_v, mid, Tsat, hg, NEWTON_ITERS), T)
-            if count:
-                n_liq = n_liq + liq.long()
-                n_vap = n_vap + vap.long()
             f = mid - h_in - c * (tw - T)
             neg = f < 0
             lo, hi = torch.where(neg, mid, lo), torch.where(neg, hi, mid)
@@ -180,8 +219,8 @@ def _tes_chain_plain(t_wall, h_eq, par, bisect_iters: int = 48, count: bool = Fa
         outs.append(h_out)
         h_in = h_out
     out = torch.stack(outs, -1), torch.stack(weights, -1)
-    if count:
-        return (*out, (n_liq * NEWTON_ITERS, n_vap * NEWTON_ITERS))
+    if count_levels:
+        return (*out, {m: ChainWork(*w) for m, w in work.items()})
     return out
 
 
@@ -201,19 +240,24 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.tes_chain_f64.argtypes = [
-                *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 3, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 4, ctypes.c_void_p,
             ]
             lib.tes_chain_f64.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def tes_chain(t_wall, h_eq, par, bisect_iters: int = 48):
+def tes_chain(t_wall, h_eq, par, bisect_iters: int = 48, levels: int = CHAIN_LEVELS):
     """The tube-side chain of each lane: (h_out, a), both (L, S) in walk
     order, from t_wall and h_eq (L, S) and par (L, 6) = (h_in0, c, P,
     T_sat, h_f, h_g). CPU tensors take `_tes_chain_plain`; CUDA tensors
     launch the kernel on the current stream (float64, contiguous) or
-    raise."""
+    raise. `levels` (1..7) is the kernel's halvings a round; the results
+    are bitwise the same for every value."""
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"tes_chain: levels must lie in 1..{MAX_LEVELS}, got {levels}")
+    if bisect_iters < 1:
+        raise ValueError(f"tes_chain: bisect_iters must be >= 1, got {bisect_iters}")
     if t_wall.device.type == "cpu":
         return _tes_chain_plain(t_wall, h_eq, par, bisect_iters)
     if t_wall.device.type != "cuda":
@@ -233,7 +277,8 @@ def tes_chain(t_wall, h_eq, par, bisect_iters: int = 48):
     with torch.cuda.device(t_wall.device):
         stream = torch.cuda.current_stream(t_wall.device).cuda_stream
         err = lib.tes_chain_f64(t_wall.data_ptr(), h_eq.data_ptr(), par.data_ptr(),
-                                h_out.data_ptr(), a.data_ptr(), L, S, bisect_iters, stream)
+                                h_out.data_ptr(), a.data_ptr(), L, S, bisect_iters, levels,
+                                stream)
     if err != 0:
         raise RuntimeError(f"tes_chain kernel launch failed: cudaError {err}")
     tes_chain.launches += 1
