@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases market  # the market layer and double loop alone
     python3 chip_smoke.py --phases plants  # the steam cycles and the NLP lane alone
     python3 chip_smoke.py --phases cases   # the nuclear / solar cases and surrogates alone
+    python3 chip_smoke.py --phases learn   # the learned-model tools and the planes' neutrality
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
@@ -33,7 +34,10 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               precision (f64 data and factorization in 5 SPIKE slabs, f32
               factors swept by the fused kernel, f64 refinement); all
               lanes converged,
-              one scenario's NPV within 1e-3 of HiGHS, kernel launches > 0,
+              one scenario's NPV within 1e-3 of HiGHS (a child process
+              started with the script, on the two cores the plants child
+              takes, beside the earlier phases; the phase waits for it
+              before its timed work), kernel launches > 0,
               wall seconds, iterations, peak memory, and the kernel's share
               of a profiled window of the same solve; then the same sweep
               with a journal (`tracer=`): the host time inside the
@@ -106,6 +110,22 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               (e) (a)'s run passes conformance=True: its lanes bitwise
                   those of the same run without it, the certificates
                   printed.
+              (f) learned warm starts on the year family: (a)'s 8 lanes
+                  through `DatasetWriter.add_batch` (one family
+                  fingerprint, hashed once for the batch: ms printed), a
+                  (64, 64) predictor trained on the card, then scenarios
+                  8-15 (the CLI's second batch in (b)) through
+                  `solve_lp_banded_adaptive(warm_predictor=)` at (a)'s
+                  options beside the same lanes cold: every seed accepted
+                  by the banded solver's safeguard (its verdict replayed,
+                  `structured.banded_warm_accept`, and counted), the
+                  iterations not the cold lanes', every lane converged,
+                  each NPV within OBJ_AGREE (of 1 + |NPV|) of the cold
+                  lane's and within YEAR_WARM_NPV_RTOL of (b)'s stored
+                  NPV, chain_sweep launches > 0; a NaN predictor on two
+                  lanes for 8 iterations: both seeds rejected, the lanes
+                  bitwise the cold run. Printed: iterations warm against
+                  cold, walls, accepted and rejected seeds, fingerprint ms.
               Without the year phase, (a) runs the year phase's sweep first.
   8. pdhg     the PDHG/PDLP lane on the card:
               (s) the scatter-add sites (the dense `instantiate` of the
@@ -121,7 +141,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   the CPU's;
               (b) the 52 weekly LPs (rts303, T=168, f64) through
                   `solve_lp_pdhg_adaptive` (PDLP controls, tol 1e-6,
-                  40,000 iterations, chunks of 2,000, conformance=True)
+                  20,000 iterations, chunks of 2,000, conformance=True)
                   and the dense IPM batch (tol 1e-8), weeks 0 and the
                   slowest through HiGHS: week 0 converged, every
                   converged lane within 1e-4 (1 + |obj_ipm|) of the IPM
@@ -157,13 +177,16 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   every ticket resolves, every lane converges, every row
                   bitwise its reference; printed: wall, LPs/s, chunks,
                   refills, the one-shot batch of 52's wall;
-              (b) open loop: 52 Poisson arrivals (`tools/torch_loadgen.py`
+              (b) open loop: 26 Poisson arrivals (`tools/torch_loadgen.py`
                   `arrival_schedule`, seed 0) over the weeks
                   (`problem_seeds`, dup 0.25, seed mod 52) at 0.5 x (a)'s
                   rate, cache on: zero lost, every solve converged, every
                   answer (cache hits included) bitwise its week's
-                  reference; latency p50/p95/p99, goodput, cache hits,
-                  then the serial baseline on the same schedule;
+                  reference; latency p50/p95/p99 (`np.percentile`'s
+                  interpolation: at 26 requests p99 lies between the two
+                  slowest and p95 between the second and third slowest),
+                  goodput, cache hits, then the serial baseline on the
+                  same schedule;
               (c) deadline: the slowest week with a timeout of half a
                   chunk resolves `deadline_exceeded` with a finite best
                   iterate;
@@ -183,6 +206,16 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   scalar reads a chunk, device time by op; then the host
                   time by phase (row copy, cold dispatch + scatter, resume,
                   harvest) over 3 more chunks.
+              (f) a warm service: week 0 at 52 LMP scales (seed 0's
+                  draw in [0.5, 2]), each solved cold in its group of 8; a
+                  predictor trained on 40, the other 12 served through
+                  `make_dense_service(bucket=8, warm_model=)`, journaled:
+                  every answer converged, at least one seed accepted (the
+                  engine's verdict on each answer's solve record, as many
+                  as the accept counter), every rejected lane bitwise its
+                  cold lane, every accepted lane's objective within
+                  SERVE_WARM_OBJ_RTOL (1 + |obj|) of its cold lane's;
+                  accepts, iterations saved and max |dx| printed.
               chain_sweep launches on this path are read (0: the dense
               IPM takes no banded sweep). The gates are raised at the
               phase's end, after every number has printed.
@@ -221,6 +254,14 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   `secure_dispatch(conformance=True)` over the outages
                   some dispatch survives: N-1 feasible, 0 escaped,
                   certificates pass (rounds, cuts printed);
+              (e) the learned screener on (c)'s outage set: hour-0 points
+                  at perturbed loads labelled by full secure dispatches,
+                  a screener trained through tools/torch_train_screener.py's
+                  `train`, then `secure_dispatch(screener=)` at (c)'s base
+                  point and one unseen point: N-1 feasible, 0 escaped, the
+                  objective within MARKET_SCREEN_OBJ_RTOL of the full set's;
+                  the screened set, rounds and SCEDs/s against the full
+                  set's printed;
               (d) `test_stochastic_bidder.py`'s SimpleMarket double loop (3
                   days), the miscalibrated parametrized bidder against
                   `StochasticBidder(n_scenario=3)`: every scenario
@@ -335,6 +376,14 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   x 8,736 h: mean within 10% of the series', hour-of-day
                   spread within 20%.
               The gates are raised at the phase's end.
+ 13. learn    the learned-model tools on the card: the --self-check of
+              tools/torch_train_warmstart.py, torch_train_screener.py,
+              torch_train_laneroute.py and torch_lane_report.py, each
+              gated as its JAX counterpart gates; then 16 small LPs served
+              with the lane observatory probing every solve and the
+              time-series store on, bitwise the same service without them,
+              and the adaptive entry with the observatory, bitwise; the
+              probes' device wall printed.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.
 """
@@ -588,18 +637,71 @@ def phase_weekly():
     return dict(solves=len(prices), wall_s=wall, worst_rel_vs_highs=worst)
 
 
-def phase_year(scenarios=8, batch=8, hours=8760):
+def _year_lp(hours=8760):
+    """The year phase's design LP (rts303, h2 at 2.5 $/kg): the program,
+    the base LMPs and the wind capacity factors over `hours`."""
     from dispatches_tpu_torch.case_studies.renewables import params as P
     from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
         HybridDesign, build_pricetaker,
     )
-    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+
+    data = P.load_rts303()
+    prog, _ = build_pricetaker(HybridDesign(
+        T=hours, with_battery=True, with_pem=True, design_opt=True,
+        h2_price_per_kg=2.5, initial_soc_fixed=None,
+    ))
+    return prog, np.resize(data["da_lmp"], hours), np.resize(data["da_wind_cf"], hours)
+
+
+def _year_highs(out_path, scenarios=8, hours=8760):
+    """`--year-highs`: HiGHS on the year phase's scenario-0 LP (seed 0's
+    first LMP scale), its x, NPV and seconds written as .npz; run as a
+    child started with the script, on the cores `_start_year_highs` gives
+    it."""
     from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+
+    cores = os.environ.get("YEAR_HIGHS_CORES")
+    if cores:
+        _pin({int(c) for c in cores.split(",")})
+    t0 = time.perf_counter()
+    prog, base_lmp, cf = _year_lp(hours)
+    scale = float(np.random.default_rng(0).uniform(0.5, 2.0, scenarios)[0])
+    params = {"lmp": scale * base_lmp, "wind_cf": cf}
+    res = solve_lp_scipy_sparse(prog, params)
+    npv = float(prog.eval_expr("NPV", torch.as_tensor(res.x), params))
+    np.savez(out_path, x=res.x, npv=npv, scale=scale, seconds=time.perf_counter() - t0)
+
+
+def _start_year_highs():
+    """Start the year phase's HiGHS reference (~1 min on the host) in a
+    child process with the script, on the two cores `_start_cpu_tes_gradient`
+    gives its child, so that it runs beside the phases before `year`; the
+    year phase waits for it before its timed work."""
+    path = os.path.join(tempfile.mkdtemp(prefix="year_"), "highs.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) >= 4:
+        env["YEAR_HIGHS_CORES"] = ",".join(map(str, cores[-2:]))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--year-highs", path], env=env)
+    return {"path": path, "proc": proc, "cores": cores[-2:] if len(cores) >= 4 else cores}
+
+
+def phase_year(highs, scenarios=8, batch=8, hours=8760):
+    """The `year` phase (see the module docstring); `highs` is
+    `_start_year_highs`'s child, waited for before anything is timed."""
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
     from dispatches_tpu_torch.solvers.structured import (
         extract_time_structure, solve_lp_banded_batch,
     )
     from dispatches_tpu_torch.workflow.runners import run_year_sweep, year_sweep_solver_kw
 
+    t1 = time.perf_counter()
+    rc = highs["proc"].wait(timeout=PHASE_LIMITS_S["year"])
+    waited = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"the year phase's HiGHS child failed (rc {rc})")
+    ref = np.load(highs["path"])
     torch.cuda.reset_peak_memory_stats()
     chain_sweep.launches = 0
     t0 = time.perf_counter()
@@ -622,25 +724,7 @@ def phase_year(scenarios=8, batch=8, hours=8760):
     if not all(np.isfinite(r["NPV"]) for r in recs):
         raise AssertionError("non-finite year NPV")
 
-    # one scenario against HiGHS on the same LP
-    data = P.load_rts303()
-    prog, _ = build_pricetaker(HybridDesign(
-        T=hours, with_battery=True, with_pem=True, design_opt=True,
-        h2_price_per_kg=2.5, initial_soc_fixed=None,
-    ))
-    base_lmp = np.resize(data["da_lmp"], hours)
-    cf = np.resize(data["da_wind_cf"], hours)
-    rec = recs[0]
-    params = {"lmp": rec["lmp_scale"] * base_lmp, "wind_cf": cf}
-    t1 = time.perf_counter()
-    res = solve_lp_scipy_sparse(prog, params)
-    highs_s = time.perf_counter() - t1
-    npv_ref = float(prog.eval_expr("NPV", torch.as_tensor(res.x), params))
-    rel = abs(rec["NPV"] - npv_ref) / abs(npv_ref)
-    log(f"[year] scenario {rec['scenario']}: NPV {rec['NPV']:.8e} HiGHS {npv_ref:.8e} "
-        f"rel {rel:.2e} (HiGHS {highs_s:.1f} s on the host)")
-    if not rel <= 1e-3:
-        raise AssertionError(f"year NPV rel {rel:.2e} > 1e-3 vs HiGHS")
+    prog, base_lmp, cf = _year_lp(hours)
 
     # profiled window: the same batch for a few IPM iterations
     meta = extract_time_structure(prog, hours, block_hours=24)
@@ -653,7 +737,9 @@ def phase_year(scenarios=8, batch=8, hours=8760):
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # CUDA activity only: the CPU-op recorder slows the host's launches
+    # and its trace takes ~10 s to read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t2 = time.perf_counter()
         solve_lp_banded_batch(meta, blp, **kw)
         torch.cuda.synchronize()
@@ -680,10 +766,24 @@ def phase_year(scenarios=8, batch=8, hours=8760):
         log(f"[year]   {us / 1e3:9.1f} ms  {name}")
     if dev_us == 0:
         log("[year] the profiler saw no device time: kernel share not measured")
+
+    # one scenario against HiGHS on the same LP (the child's)
+    rec = recs[0]
+    if rec["lmp_scale"] != float(ref["scale"]):
+        raise AssertionError(f"scenario 0's scale {rec['lmp_scale']} is not HiGHS's "
+                             f"{float(ref['scale'])}")
+    npv_ref = float(ref["npv"])
+    rel = abs(rec["NPV"] - npv_ref) / abs(npv_ref)
+    log(f"[year] scenario {rec['scenario']}: NPV {rec['NPV']:.8e} HiGHS {npv_ref:.8e} "
+        f"rel {rel:.2e} (HiGHS {float(ref['seconds']):.1f} s in a child process on cores "
+        f"{highs['cores']}, started with the script; {waited:.1f} s waited for it before "
+        f"the timed sweep)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"year NPV rel {rel:.2e} > 1e-3 vs HiGHS")
     return dict(scenarios=len(recs), wall_s=wall, batch_seconds=batch_s,
                 mean_iterations=float(np.mean(iters)), peak_bytes=peak,
                 launches=launches, rel_vs_highs=rel, kernel_share=share,
-                device_busy=busy, window_s=window, records=recs, highs_x=res.x,
+                device_busy=busy, window_s=window, records=recs, highs_x=ref["x"],
                 highs_npv=(rec["lmp_scale"], npv_ref), journal=journal)
 
 
@@ -1195,7 +1295,8 @@ def _adaptive_year(year_records, hours):
         raise AssertionError("conformance=True changed the adaptive year lanes")
     return dict(wall_s=wall, stats=stats, launches=launches, launches_by_chains=by_chains,
                 rel_max=float(rel.max()), bitwise_lanes=early, plain_lane_iterations=plain,
-                conformance_worst=conf["worst"])
+                conformance_worst=conf["worst"],
+                _ctx=dict(prog=prog, meta=meta, blp=blp, sol=sol, kw=kw, data=data))
 
 
 def _adaptive_cli(hours, highs_npv=None):
@@ -1264,7 +1365,7 @@ def _adaptive_cli(hours, highs_npv=None):
     if not rel <= 1e-3:
         raise AssertionError(f"warm-started year NPV rel {rel:.2e} > 1e-3 vs HiGHS")
     return dict(wall_s=wall, launches=launches, iters_saved=saved, rel_vs_highs=rel,
-                journal=journal_checks)
+                journal=journal_checks, _npv_by_scale={v[0]: v[1] for v in rows.values()})
 
 
 def _journal_checks(journal, record, scenarios):
@@ -1383,6 +1484,138 @@ def _remedy_give_up():
                 replay_cpu=on_cpu[0], replay_cpu_bitwise=on_cpu[1].get("bitwise"))
 
 
+LEARN_DEVICE = "cuda"  # adaptive (f) and the learn phase; the CPU rehearses them with "cpu"
+# (f): a warm lane's NPV against (b)'s stored one, reached by another path
+# (neighbour seeds): the year phase's HiGHS band, as (b) holds its warm lane
+YEAR_WARM_NPV_RTOL = 1e-3
+LEARNED_EPOCHS = 2000  # (f): full-batch Adam steps on 6 of the 8 lanes (a second on the card)
+LEARNED_HIDDEN = (64, 64)
+
+
+def _adaptive_learned(ctx, npv_by_scale, hours):
+    """(f): learned warm starts on the year family. (a)'s 8 solved lanes
+    go through `DatasetWriter` (one fingerprint for all: only c varies with
+    the LMP scale), a predictor trains on the card, and scenarios 8-15
+    (the CLI's second batch of (b)) run through
+    `solve_lp_banded_adaptive(warm_predictor=)` at the year options beside
+    the same lanes cold: every seed accepted by the banded safeguard (the
+    predictor's replayed verdicts, counted) and the iterations not the
+    cold ones; then a NaN predictor on two lanes for 8 iterations: both
+    seeds rejected, the lanes bitwise the cold run."""
+    from dispatches_tpu_torch.learn import (
+        DatasetWriter, WarmStartModel, WarmStartPredictor, family_fingerprints, load_dataset,
+        train_warmstart_model,
+    )
+    from dispatches_tpu_torch.runtime.adaptive import _batch_axes, solve_lp_banded_adaptive
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+    from dispatches_tpu_torch.solvers.structured import _BASE_NDIM, BandedLP
+
+    prog, meta, blp, sol, kw = (ctx[k] for k in ("prog", "meta", "blp", "sol", "kw"))
+    axes, B = _batch_axes(BandedLP, _BASE_NDIM, blp)
+    t0 = time.perf_counter()
+    fams = family_fingerprints(blp, axes, B)
+    fp_ms = (time.perf_counter() - t0) * 1e3
+    varying = [n for n, ax in zip(BandedLP._fields, axes) if ax == 0]
+    log(f"[adaptive] (f) {B} year lanes: batched fields {varying}, {len(set(fams))} family "
+        f"fingerprint(s), {fp_ms:.1f} ms for the batch")
+    if len(set(fams)) != 1:
+        raise AssertionError(f"(f) the year lanes span {len(set(fams))} families")
+    with tempfile.TemporaryDirectory() as tmp:
+        w = DatasetWriter(f"{tmp}/ds")
+        kept = w.add_batch(blp, sol, axes, B, iterations=sol.iterations.tolist())
+        w.close()
+        ds = load_dataset([f"{tmp}/ds"])
+        t1 = time.perf_counter()
+        model, met = train_warmstart_model(ds, hidden=LEARNED_HIDDEN, epochs=LEARNED_EPOCHS,
+                                           holdout_frac=0.25, seed=0, device=LEARN_DEVICE)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        model = WarmStartModel.load(model.save(f"{tmp}/warm.npz"), device=LEARN_DEVICE)
+    log(f"[adaptive] (f) {kept} lanes written, {ds.X.shape[1]} features -> {ds.Y.shape[1]} "
+        f"targets; trained {LEARNED_HIDDEN} x {LEARNED_EPOCHS} epochs in {train_s:.2f} s: "
+        f"train R2 {met['train_R2_mean']:.3f}, holdout rel err "
+        f"{met.get('holdout_rel_err', float('nan')):.3e}")
+    # scenarios 8-15 of (b)'s sweep: the same data, the next scales
+    scales = np.random.default_rng(0).uniform(0.5, 2.0, 16)[8:]
+    base = np.resize(ctx["data"]["da_lmp"], hours)
+    params = {"lmp": torch.as_tensor(scales[:, None] * base[None, :], dtype=torch.float64,
+                                     device=LEARN_DEVICE),
+              "wind_cf": torch.as_tensor(np.resize(ctx["data"]["da_wind_cf"], hours),
+                                         dtype=torch.float64, device=LEARN_DEVICE)}
+    blp2 = meta.instantiate(params, device=LEARN_DEVICE)
+    pred = WarmStartPredictor(model, device=LEARN_DEVICE)
+    run = dict(chunk_iters=ADAPTIVE_CHUNK, ladder_base=ADAPTIVE_LADDER, **kw)
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
+
+    def verdicts(before):
+        after = obs_metrics.flat_values()
+        return [sum(after.get(k, 0.0) - before.get(k, 0.0) for k in after
+                    if k.startswith(name) and 'entry="solve_lp_banded"' in k)
+                for name in ("learned_warm_accept_total", "learned_warm_reject_total")]
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cold = solve_lp_banded_adaptive(meta, blp2, **run)
+    cold_its = cold.iterations.tolist()
+    cold_s = time.perf_counter() - t1
+    chain_sweep.launches = 0
+    before = obs_metrics.flat_values()
+    t1 = time.perf_counter()
+    warm = solve_lp_banded_adaptive(meta, blp2, warm_predictor=pred, **run)
+    conv = warm.converged.tolist()
+    wall = time.perf_counter() - t1
+    launches = chain_sweep.launches
+    acc, rej = verdicts(before)
+    seeds_fp_ms = pred.last_fingerprint_s * 1e3
+    npvs = prog.eval_expr("NPV", warm.x, params).cpu().numpy()
+    cold_npv = prog.eval_expr("NPV", cold.x, params).cpu().numpy()
+    ref = np.array([npv_by_scale[s] for s in scales])
+    rel = np.abs(npvs - ref) / np.abs(ref)
+    # two solve paths of one LP: bench.py's obj_agree band (OBJ_AGREE)
+    off = np.abs(npvs - cold_npv) / (1.0 + np.abs(cold_npv))
+    its = warm.iterations.tolist()
+    log(f"[adaptive] (f) scenarios 8-15 (scales {np.round(scales, 4).tolist()}) through "
+        f"solve_lp_banded_adaptive(warm_predictor=): wall {wall:.2f} s against the same "
+        f"lanes cold {cold_s:.2f} s, iterations {its} against cold {cold_its} (sum "
+        f"{sum(its)} against {sum(cold_its)}); seeds the banded safeguard accepts {acc:g}, "
+        f"rejects {rej:g}; "
+        f"the predictor's fingerprint {seeds_fp_ms:.1f} ms; chain_sweep launches {launches}; "
+        f"NPV rel vs (b)'s stored NPVs {np.array2string(rel, precision=2)}, vs the same "
+        f"lanes cold {np.array2string(off, precision=2)}")
+    B2 = len(scales)
+    if not (acc == B2 and rej == 0):
+        raise AssertionError(f"(f) {acc:g} of {B2} learned seeds accepted, {rej:g} rejected")
+    if its == cold_its:
+        raise AssertionError(f"(f) the warm-started lanes took the cold iterations {its}")
+    if not all(conv):
+        raise AssertionError(f"(f) warm-started year lanes not converged: {conv}")
+    if not np.all(off <= OBJ_AGREE):
+        raise AssertionError(f"(f) warm NPVs vs the cold lanes' rel {off} > {OBJ_AGREE}")
+    if not np.all(rel <= YEAR_WARM_NPV_RTOL):
+        raise AssertionError(f"(f) NPVs vs (b)'s rel {rel} > {YEAR_WARM_NPV_RTOL}")
+    if launches <= 0:
+        raise AssertionError("(f) the warm-started year batch launched no chain_sweep kernel")
+    # a NaN predictor: every seed rejected, the lanes bitwise the cold run's
+    nan = WarmStartModel(model.surrogate, model.manifest)
+    nan.predict_parts = lambda X: {p: np.full((X.shape[0], d), np.nan) for p, d in model.targets}
+    two = BandedLP(*(a[:2] if ax == 0 else a for a, ax in zip(blp2, axes)))
+    short = dict(run, max_iter=ADAPTIVE_CHUNK)
+    cold2 = solve_lp_banded_adaptive(meta, two, **short)
+    before = obs_metrics.flat_values()
+    nan2 = solve_lp_banded_adaptive(meta, two, warm_predictor=WarmStartPredictor(nan), **short)
+    nan_acc, nan_rej = verdicts(before)
+    same = _all_same(cold2, nan2)
+    log(f"[adaptive] (f) NaN predictor, 2 lanes x {ADAPTIVE_CHUNK} iterations: seeds accepted "
+        f"{nan_acc:g}, rejected {nan_rej:g}; "
+        f"{'bitwise the cold run' if same else 'DIFFERS from the cold run'}")
+    if not (same and nan_acc == 0 and nan_rej == 2):
+        raise AssertionError("(f) a rejected learned seed moved the banded lanes")
+    return dict(wall_s=wall, cold_wall_s=cold_s, iterations=its, cold_iterations=cold_its,
+                launches=launches, accepted=acc, rejected=rej, fingerprint_ms=fp_ms,
+                predictor_fingerprint_ms=seeds_fp_ms, train_s=train_s,
+                rel_max=float(rel.max()), train_R2=met["train_R2_mean"])
+
+
 def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
     """The `adaptive` phase (see the module docstring), on the card.
     `year_records` and `highs_npv` are the year phase's records and its
@@ -1395,12 +1628,15 @@ def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
     a = _adaptive_year(year_records, hours)
     b = _adaptive_cli(hours, highs_npv)
     c = _adaptive_remedy()
-    return dict(year=a, cli=b, remedy=c)
+    t0 = time.perf_counter()
+    f = _adaptive_learned(a.pop("_ctx"), b.pop("_npv_by_scale"), hours)
+    log(f"[adaptive] (f) in {time.perf_counter() - t0:.1f} s")
+    return dict(year=a, cli=b, remedy=c, learned=f)
 
 
 PDLP_KW = dict(adaptive_restarts=True, primal_weight=True, linesearch=True)
 PDHG_TOL = 1e-6
-PDHG_MAX_ITER = 40_000  # (b): 100,000 before the cases phase; cut to pay for it
+PDHG_MAX_ITER = 20_000  # (b): 100,000 before the cases phase, 40,000 before the learn legs
 PDHG_CHUNK = 2000
 PDHG_YEAR_ITERS = 5_000  # (c): a fixed budget, not a convergence run (20,000 before the cases phase)
 PDHG_REPEAT_ITERS = 1000  # (c): two runs of this many, bitwise equal
@@ -1444,13 +1680,17 @@ def _pdhg_profile(tag, lp, st, iters):
 
     from dispatches_tpu_torch.solvers.pdhg import _Op, _Pattern, solve_lp_pdhg
 
-    def window(n):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def window(n, parse=True):
+        # CUDA activity only (as `_launches_of`): the CPU-op recorder slows
+        # the host's launches and its trace takes ~10 s to read a window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             solve_lp_pdhg(lp, tol=0.0, max_iter=PDHG_MAX_ITER, state=st,
                           it_stop=int(st.it.max()) + n, return_state=True, **PDLP_KW)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        if not parse:  # a warm-up window's trace is not read
+            return None
         dev_us, launches, by_op = 0.0, 0, {}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1463,7 +1703,7 @@ def _pdhg_profile(tag, lp, st, iters):
             by_op[e.key[:70]] = by_op.get(e.key[:70], 0.0) + us
         return wall, dev_us, launches, by_op
 
-    window(iters)  # warm
+    window(iters, parse=False)  # warm
     _, _, n1, _ = window(iters)
     w2, d2, n2, by_op = window(2 * iters)
     per_it = (n2 - n1) / iters
@@ -1936,10 +2176,13 @@ def _pdhg_remedy(device="cuda"):
 def phase_pdhg(year_records=None):
     """The `pdhg` phase (see the module docstring), on the card."""
     t0 = time.perf_counter()
-    order = _scatter_order()
-    weekly = _pdhg_weekly()
-    year = _pdhg_year(year_records)
-    rem = _pdhg_remedy()
+    parts = {}
+    for key, fn in (("scatter_order", _scatter_order), ("weekly", _pdhg_weekly),
+                    ("year", lambda: _pdhg_year(year_records)), ("remedy", _pdhg_remedy)):
+        t1 = time.perf_counter()
+        parts[key] = fn()
+        log(f"[pdhg] {key} in {time.perf_counter() - t1:.1f} s")
+    order, weekly, year, rem = parts.values()
     log(f"[pdhg] phase {time.perf_counter() - t0:.1f} s")
     if _FAILS:
         raise AssertionError(f"pdhg phase: {len(_FAILS)} gates failed: {_FAILS}")
@@ -1951,9 +2194,9 @@ def phase_pdhg(year_records=None):
 
 SERVE_BUCKET, SERVE_CHUNK = 8, 8
 SERVE_KW = dict(tol=1e-8, max_iter=60)  # the weekly dense IPM batch's options (pdhg (b))
-# (b): requests (104 before the cases phase; cut to pay for it),
-# repeats, x (a)'s rate
-SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 52, 0.25, 0.5
+# (b): requests (104 before the cases phase, 52 before the learn legs; cut
+# to pay for them), repeats, x (a)'s rate
+SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 26, 0.25, 0.5
 SERVE_PROFILE_CHUNKS = 3
 SERVE_DEVICE = "cuda"
 _SERVE_FAILS = []
@@ -1975,10 +2218,11 @@ def _row_diff(row, ref):
     return [n for n, a, b in zip(ref._fields, row, ref) if not _np_same(a, b)]
 
 
-def _serve_rows(hours=168):
+def _serve_rows(hours=168, scales=None):
     """The 52 weekly design LPs of rts303 (T = 168, f64), built by the dense
     `instantiate` on the card from the weekly parameters of pdhg (s), as
-    host rows: a request arrives from outside the card."""
+    host rows: a request arrives from outside the card. With `scales`, week
+    0 at those multiples of its LMPs instead, a row each."""
     from dispatches_tpu_torch.case_studies.renewables import params as P
     from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
         HybridDesign, build_pricetaker,
@@ -1991,6 +2235,9 @@ def _serve_rows(hours=168):
     data = P.load_rts303()
     p_week = {k: data[k][:52 * hours].reshape(52, hours) for k in ("da_lmp", "da_wind_cf")}
     p_week = {"lmp": p_week["da_lmp"], "wind_cf": p_week["da_wind_cf"]}
+    if scales is not None:
+        p_week = {"lmp": np.asarray(scales)[:, None] * p_week["lmp"][0],
+                  "wind_cf": np.repeat(p_week["wind_cf"][:1], len(scales), axis=0)}
     lp = prog.instantiate({k: torch.as_tensor(v, device=SERVE_DEVICE) for k, v in p_week.items()},
                           device=SERVE_DEVICE)
     from dispatches_tpu_torch.solvers.ipm import _LP_NDIM
@@ -1998,7 +2245,7 @@ def _serve_rows(hours=168):
     host = {n: f.cpu().numpy() for n, f in zip(LPData._fields, lp)}
     # bounds come unbatched (one l and u for every week)
     return [LPData(*(np.asarray(f[w] if f.ndim > _LP_NDIM[n] else f) for n, f in host.items()))
-            for w in range(52)]
+            for w in range(len(p_week["lmp"]))]
 
 
 def _stack_rows(rows):
@@ -2008,10 +2255,10 @@ def _stack_rows(rows):
                     for i in range(len(LPData._fields))))
 
 
-def _serve_reference(rows):
-    """Each week solved in a one-shot `solve_lp_batch` of its group of 8 (in
-    submission order, the last group padded by its own weeks), and the
-    one-shot batch of all 52 weeks' wall."""
+def _serve_groups(rows):
+    """Each row solved in a one-shot `solve_lp_batch` of its group of 8 (in
+    submission order, the last group padded by its own rows): {row: host
+    `IPMSolution`}."""
     from dispatches_tpu_torch.solvers.ipm import IPMSolution, solve_lp_batch
 
     ref = {}
@@ -2022,6 +2269,16 @@ def _serve_reference(rows):
         host = [f.cpu().numpy() for f in sol]
         for j, w in enumerate(weeks):
             ref[w] = IPMSolution(*(np.asarray(h[j]) for h in host))
+    return ref
+
+
+def _serve_reference(rows):
+    """Each week solved in a one-shot `solve_lp_batch` of its group of 8 (in
+    submission order, the last group padded by its own weeks), and the
+    one-shot batch of all 52 weeks' wall."""
+    from dispatches_tpu_torch.solvers.ipm import solve_lp_batch
+
+    ref = _serve_groups(rows)
     full = _stack_rows(rows)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2355,6 +2612,99 @@ def _serve_profile(rows):
                 top_ops=sorted(by_op.items(), key=lambda kv: -kv[1])[:8])
 
 
+SERVE_WARM_SCALES = 52  # (f): week 0 at this many LMP scales (seed 0's draw in [0.5, 2])
+SERVE_WARM_TRAIN = 40  # (f): the scales a warm model trains on; the other 12 are served
+# (f): an accepted seed's answer against its cold lane, |obj_warm - obj_cold|
+# / (1 + |obj_cold|): the IPM's own convergence test, residuals and scaled
+# gap below 100 x tol (SERVE_KW's 1e-8); two converged starts differ by
+# more than tol itself. Not |dx|: two starts stop at other interior points
+# near the optimal face
+SERVE_WARM_OBJ_RTOL = 100 * SERVE_KW["tol"]
+
+
+def _serve_warm(hours=168):
+    """(f): a warm service. Week 0 at SERVE_WARM_SCALES LMP scales (the
+    weekly rows themselves span a range a predictor trained on 40 of them
+    does not reach: every seed was rejected), their cold lanes solved in
+    groups of 8; a predictor trains on 40 and the other 12 are served
+    through ``make_dense_service(bucket=8, warm_model=)``, journaled, so
+    each answer's ``warm_accepted`` is the engine's own verdict."""
+    from dispatches_tpu_torch.core.program import LPData
+    from dispatches_tpu_torch.learn import DatasetWriter, load_dataset, train_warmstart_model
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
+    from dispatches_tpu_torch.obs.journal import Tracer, use_tracer
+    from dispatches_tpu_torch.serve import make_dense_service
+
+    scales = np.random.default_rng(0).uniform(0.5, 2.0, SERVE_WARM_SCALES)
+    rows = _serve_rows(hours, scales=scales)
+    t0 = time.perf_counter()
+    ref = _serve_groups(rows)
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        w = DatasetWriter(f"{tmp}/ds")
+        for k in range(SERVE_WARM_TRAIN):
+            w.add(rows[k], ref[k], iterations=int(ref[k].iterations))
+        w.close()
+        t1 = time.perf_counter()
+        model, met = train_warmstart_model(load_dataset([f"{tmp}/ds"]), hidden=LEARNED_HIDDEN,
+                                           epochs=LEARNED_EPOCHS, seed=0, device=SERVE_DEVICE)
+        train_s = time.perf_counter() - t1
+        path = model.save(f"{tmp}/warm.npz")
+        before = obs_metrics.flat_values()
+        svc = make_dense_service(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, cache_size=None,
+                                 warm_model=path, device=SERVE_DEVICE, **SERVE_KW)
+        todo = range(SERVE_WARM_TRAIN, len(rows))
+        tracer = Tracer(None)
+        with use_tracer(tracer):
+            t1 = time.perf_counter()
+            tickets = {k: svc.submit(LPData(*rows[k]), request_id=f"s{k}") for k in todo}
+            svc.drain()
+            wall = time.perf_counter() - t1
+        after = obs_metrics.flat_values()
+    res = {k: t.result(0) for k, t in tickets.items() if t.done()}
+    verdict = {int(e["request_id"][1:]): bool(e.get("warm_accepted"))
+               for e in tracer.events if e.get("kind") == "solve" and "request_id" in e}
+
+    def delta(prefix, extra=""):
+        return sum(after.get(k, 0.0) - before.get(k, 0.0) for k in after
+                   if k.startswith(prefix) and extra in k)
+
+    acc, rej = delta("learned_warm_accept_total"), delta("learned_warm_reject_total")
+    saved = delta("warm_start_iters_saved_total", 'source="learned"')
+    dx = {k: float(np.max(np.abs(np.asarray(r.solution.x) - ref[k].x))) for k, r in res.items()}
+    dobj = {k: float(abs(float(r.solution.obj) - float(ref[k].obj))
+                     / (1.0 + abs(float(ref[k].obj)))) for k, r in res.items()}
+    unconv = [k for k, r in res.items() if not bool(r.solution.converged)]
+    its = {k: (int(r.iterations), int(ref[k].iterations)) for k, r in res.items()}
+    took = [k for k in res if verdict.get(k)]
+    moved = {k: _row_diff(r.solution, ref[k]) for k, r in res.items()
+             if not verdict.get(k) and _row_diff(r.solution, ref[k])}
+    log(f"[serve] (f) warm service on week 0 at {len(rows)} LMP scales (cold lanes in groups of "
+        f"{SERVE_BUCKET}: {ref_s:.2f} s): trained on {SERVE_WARM_TRAIN} in {train_s:.2f} s "
+        f"(train R2 {met['train_R2_mean']:.3f}, holdout rel err "
+        f"{met.get('holdout_rel_err', float('nan')):.3e}), served {len(res)} of {len(todo)} "
+        f"in {wall:.2f} s: accepted {acc:g} (lanes {took}), rejected {rej:g}, iterations saved "
+        f"{saved:.1f} (against the artifact's cold mean {model.cold_iters_mean:.1f}); "
+        f"iterations warm/cold {its}; accepted lanes' objective rel to cold max "
+        f"{max((dobj[k] for k in took), default=0.0):.2e}, max |dx| "
+        f"{max((dx[k] for k in took), default=0.0):.2e}; rejected lanes bitwise cold: "
+        f"{len(res) - len(took) - len(moved)} of {len(res) - len(took)}")
+    if len(res) != len(todo) or unconv:
+        _serve_fail(f"(f) lost {len(todo) - len(res)}, unconverged {unconv}")
+    if sorted(verdict) != sorted(res) or len(took) != acc:
+        _serve_fail(f"(f) journaled verdicts {verdict} against {acc:g} counted accepts")
+    if not took:
+        _serve_fail("(f) no learned seed accepted: the served warm path ran no lane")
+    if moved:
+        _serve_fail(f"(f) rejected lanes not bitwise their cold lanes: {moved}")
+    far = {k: dobj[k] for k in took if not dobj[k] <= SERVE_WARM_OBJ_RTOL}
+    if far:
+        _serve_fail(f"(f) accepted lanes' objectives off their cold lanes: {far}")
+    return dict(served=len(res), accepted=acc, rejected=rej, iters_saved=saved,
+                wall_s=wall, train_s=train_s, iterations=its,
+                max_obj_rel=max((dobj[k] for k in took), default=0.0))
+
+
 def phase_serve():
     """The `serve` phase (see the module docstring), on the card."""
     from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
@@ -2363,18 +2713,28 @@ def phase_serve():
     chain_sweep.launches = 0
     rows = _serve_rows()
     ref, one = _serve_reference(rows)
-    burst = _serve_burst(rows, ref)
-    loop = _serve_open_loop(rows, ref, burst["lps"])
-    late = _serve_deadline(rows, ref, burst["chunk_s"])
-    fleet = _serve_fleet(rows, ref)
-    prof = _serve_profile(rows)
+
+    def timed(tag, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        log(f"[serve] {tag} in {time.perf_counter() - t1:.1f} s")
+        return out
+
+    burst = timed("(a)", lambda: _serve_burst(rows, ref))
+    loop = timed("(b)", lambda: _serve_open_loop(rows, ref, burst["lps"]))
+    late = timed("(c)", lambda: _serve_deadline(rows, ref, burst["chunk_s"]))
+    fleet = timed("(d)", lambda: _serve_fleet(rows, ref))
+    prof = timed("(e)", lambda: _serve_profile(rows))
+    t1 = time.perf_counter()
+    warm = _serve_warm()
+    log(f"[serve] (f) in {time.perf_counter() - t1:.1f} s")
     launches = chain_sweep.launches
     log(f"[serve] chain_sweep launches on the serving path: {launches} (dense IPM only); "
         f"phase {time.perf_counter() - t0:.1f} s")
     if _SERVE_FAILS:
         raise AssertionError(f"serve phase: {len(_SERVE_FAILS)} gates failed: {_SERVE_FAILS}")
     return dict(reference=one, burst=burst, open_loop=loop, deadline=late, fleet=fleet,
-                profile=prof, launches=launches)
+                profile=prof, launches=launches, warm=warm)
 
 
 # ------------------------------------------------------------------ market
@@ -2748,6 +3108,97 @@ def _market_contingency(g):
     out["infeasible_outages"] = [cset[k].label for k in infeasible]
     out["secure"] = dict(rounds=sd.rounds, cuts=len(sd.cuts), feasible=sd.feasible,
                          escaped=sd.escaped_violations, wall_s=wall, conformance=conf)
+    out["_screen_ctx"] = dict(base=base, secure_set=secure_set, sd=sd, wall_s=wall)
+    return out
+
+
+# (e): a screened dispatch's objective against the full set's, relative to
+# max(1, |obj|). Both end N-1 secure over the whole set, each optimal for
+# its own cuts, so each is feasible for the other's cuts and the optima
+# agree up to the violation test's slack (`secure_dispatch(rel_tol=1e-4)`)
+MARKET_SCREEN_OBJ_RTOL = 1e-4
+MARKET_SCREEN_POINTS = 6  # (e): operating points labelled by full secure dispatches
+MARKET_SCREEN_LOAD = (0.97, 1.03)  # (e): their load scales around hour 0
+
+
+def _market_screener(g, ctx):
+    """(e): the learned N-1 screener on (c)'s 73-bus outage set. Full
+    `secure_dispatch` runs label hour-0 operating points at perturbed loads
+    (`screen_targets` rows through `DatasetWriter`), one artifact trains
+    through `tools/torch_train_screener.py`'s `train`, and (c)'s base point
+    and one unseen point are dispatched with ``screener=``."""
+    import importlib.util
+
+    from dispatches_tpu_torch.learn.dataset import DatasetWriter
+    from dispatches_tpu_torch.learn.screener import SCREEN_VARYING, screen_targets
+    from dispatches_tpu_torch.market import contingency as C
+    from dispatches_tpu_torch.market.network import dcopf_program
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_screener", os.path.join(ROOT, "tools", "torch_train_screener.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    base, cset = ctx["base"], ctx["secure_set"]
+    prog0 = dcopf_program(g)
+    rng = np.random.default_rng(11)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        w = DatasetWriter(f"{tmp}/shards", varying=SCREEN_VARYING)
+        points, label_s = [], 0.0
+        for i in range(MARKET_SCREEN_POINTS + 1):
+            p = dict(base)
+            p["load"] = np.asarray(base["load"]) * rng.uniform(*MARKET_SCREEN_LOAD,
+                                                               size=np.shape(base["load"]))
+            t0 = time.perf_counter()
+            sd = C.secure_dispatch(g, p, cset, device=MARKET_DEVICE, **MARKET_KW)
+            dt = time.perf_counter() - t0
+            label_s += dt
+            if not (sd.feasible and bool(sd.sol.converged)):
+                log(f"[market] (e) point {i} left out: feasible {sd.feasible}, converged "
+                    f"{bool(sd.sol.converged)}")
+                continue
+            points.append((p, sd, dt))
+            if i < MARKET_SCREEN_POINTS:
+                lp = prog0.instantiate({k: np.asarray(v) for k, v in p.items()},
+                                       device=MARKET_DEVICE)
+                w.add(lp, {"x": screen_targets(cset, sd.violated_outages)})
+        w.flush()
+        t0 = time.perf_counter()
+        rep = tool.train([f"{tmp}/shards"], f"{tmp}/screener.npz", epochs=400, seed=0,
+                         device=MARKET_DEVICE)
+        train_s = time.perf_counter() - t0
+        log(f"[market] (e) {len(points)} points labelled by full secure dispatches in "
+            f"{label_s:.2f} s ({w.rows_written} rows, critical share "
+            f"{rep['critical_share']:.3f}); screener trained in {train_s:.2f} s: "
+            f"{ {k: rep['metrics'].get(k) for k in ('train_recall', 'train_shrink', 'recall', 'shrink')} }")
+        checks = [("(c)'s base point", base, ctx["sd"], ctx["wall_s"])]
+        if len(points) > MARKET_SCREEN_POINTS:
+            p, sd, dt = points[-1]
+            checks.append(("an unseen point", p, sd, dt))
+        for tag, p, full, full_s in checks:
+            t0 = time.perf_counter()
+            sc = C.secure_dispatch(g, p, cset, screener=rep["artifact"], device=MARKET_DEVICE,
+                                   **MARKET_KW)
+            sc_s = time.perf_counter() - t0
+            obj, ref = float(sc.sol.obj), float(full.sol.obj)
+            rel = abs(obj - ref) / max(1.0, abs(ref))
+            log(f"[market] (e) {tag}: screened set {sc.evaluated} of {sc.total_branch_ctg} "
+                f"outages (shrink {sc.shrink_ratio:.3f}), {sc.rounds} rounds "
+                f"({sc.rounds / sc_s:.2f} SCEDs/s) in {sc_s:.2f} s against the full set's "
+                f"{full.rounds} rounds in {full_s:.2f} s ({full.rounds / full_s:.2f} SCEDs/s); "
+                f"screened {sc.screened}, fallback {sc.screen_fallback}, feasible "
+                f"{sc.feasible}, escaped {sc.escaped_violations}, objective rel {rel:.2e}")
+            if not (sc.feasible and sc.escaped_violations == 0):
+                _market_fail(f"(e) {tag}: screened dispatch feasible {sc.feasible}, escaped "
+                             f"{sc.escaped_violations}")
+            if not rel <= MARKET_SCREEN_OBJ_RTOL:
+                _market_fail(f"(e) {tag}: screened objective rel {rel:.2e} > "
+                             f"{MARKET_SCREEN_OBJ_RTOL}")
+            out[tag] = dict(evaluated=sc.evaluated, total=sc.total_branch_ctg,
+                            rounds=sc.rounds, wall_s=sc_s, full_rounds=full.rounds,
+                            full_wall_s=full_s, screened=sc.screened,
+                            fallback=sc.screen_fallback, obj_rel=rel)
+    out.update(points=len(points), label_s=label_s, train_s=train_s)
     return out
 
 
@@ -2834,14 +3285,19 @@ def phase_market():
     chain_sweep.launches = 0
     dl = _market_doubleloop()
     net = _market_network73()
-    ctg = _market_contingency(net.pop("grid"))
+    grid = net.pop("grid")
+    ctg = _market_contingency(grid)
+    t1 = time.perf_counter()
+    scr = _market_screener(grid, ctg.pop("_screen_ctx"))
+    log(f"[market] (e) in {time.perf_counter() - t1:.1f} s")
     sto = _market_stochastic()
     launches = chain_sweep.launches
     log(f"[market] chain_sweep launches on the market path: {launches} (dense IPM only); "
         f"phase {time.perf_counter() - t0:.1f} s")
     if _MARKET_FAILS:
         raise AssertionError(f"market phase: {len(_MARKET_FAILS)} gates failed: {_MARKET_FAILS}")
-    return dict(doubleloop=dl, network=net, contingency=ctg, stochastic=sto, launches=launches)
+    return dict(doubleloop=dl, network=net, contingency=ctg, screener=scr, stochastic=sto,
+                launches=launches)
 
 
 _PLANTS_FAILS = []
@@ -4212,12 +4668,99 @@ def phase_cases():
     return out
 
 
+# ------------------------------------------------------------------ learn
+LEARN_TOOLS = ("torch_train_warmstart", "torch_train_screener", "torch_train_laneroute",
+               "torch_lane_report")
+
+
+def _tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _learn_neutral():
+    """A small dense batch served with the lane observatory probing every
+    solve and the time-series store on, against the same batch with both
+    off; and the adaptive entry with the observatory on. Bitwise, and the
+    probes' device wall printed (the plane's cost)."""
+    from dispatches_tpu_torch.core.program import LPData
+    from dispatches_tpu_torch.obs.lanes import as_lanes
+    from dispatches_tpu_torch.runtime.adaptive import solve_lp_adaptive
+    from dispatches_tpu_torch.serve import make_dense_service
+
+    A = np.random.default_rng(7).standard_normal((4, 8))
+
+    def row(seed):
+        r = np.random.default_rng(seed)
+        return LPData(A, A @ r.uniform(0.5, 3.5, 8), r.standard_normal(8), np.zeros(8),
+                      np.full(8, 4.0), np.float64(0.0))
+
+    rows = [row(s) for s in range(16)]
+    got, walls = {}, {}
+    for on in (False, True):
+        svc = make_dense_service(8, cache_size=None, device=LEARN_DEVICE, timeseries=on,
+                                 lanes={"probe_fraction": 1.0, "max_probes_per_tick": 16}
+                                 if on else None)
+        t0 = time.perf_counter()
+        tickets = [svc.submit(r) for r in rows]
+        svc.drain()
+        walls[on] = time.perf_counter() - t0
+        got[on] = [t.result(0).solution for t in tickets]
+        if on:
+            rep = svc.lanes.report()
+            series = svc.store.stats()["series"]
+    same = all(_np_same(a, b) for x, y in zip(got[False], got[True]) for a, b in zip(x, y))
+    lp = _dense_lp(rows[:8], device=LEARN_DEVICE)
+    obs = as_lanes({"probe_fraction": 1.0})
+    same_a = _all_same(solve_lp_adaptive(lp), solve_lp_adaptive(lp, lanes=obs))
+    one = LPData(*(a[0] for a in lp))
+    same_a &= _all_same(solve_lp_adaptive(one), solve_lp_adaptive(one, lanes=obs))
+    probes = obs.run_probes()
+    outcomes = obs.report()["outcomes"]
+    per = (obs.report()["probe_wall_seconds"] / len(probes)) if probes else float("nan")
+    log(f"[learn] neutrality: 16 LPs served with lanes (probe rate 1.0) and timeseries: "
+        f"{'bitwise equal to' if same else 'DIFFER from'} the service without them "
+        f"({walls[True]:.2f} s against {walls[False]:.2f} s; {rep['probes_run']} probes, "
+        f"{rep['probe_wall_seconds']:.3f} s inside them, outcomes {rep['outcomes']}, "
+        f"{series} series); adaptive entry with lanes "
+        f"{'bitwise' if same_a else 'DIFFERS'}; its {len(probes)} probe(s) {per * 1e3:.1f} ms "
+        f"each, outcomes {outcomes}")
+    if not (same and same_a):
+        raise AssertionError("lanes= / timeseries= moved a solve's bits")
+    return dict(bitwise=True, probes=rep["probes_run"], probe_wall_s=rep["probe_wall_seconds"],
+                served_wall_on_s=walls[True], served_wall_off_s=walls[False],
+                adaptive_probe_ms=per * 1e3)
+
+
+def phase_learn():
+    """The `learn` phase (see the module docstring), on the card."""
+    out = {}
+    for name in LEARN_TOOLS:
+        t0 = time.perf_counter()
+        mod = _tool(name)
+        rc = mod.self_check(device=LEARN_DEVICE) if name != "torch_lane_report" else \
+            mod.self_check(None, device=LEARN_DEVICE)
+        dt = time.perf_counter() - t0
+        log(f"[learn] {name} --self-check on {LEARN_DEVICE}: rc {rc} in {dt:.1f} s")
+        if rc != 0:
+            raise AssertionError(f"{name} --self-check failed on {LEARN_DEVICE} (rc {rc})")
+        out[name] = dict(rc=rc, seconds=dt)
+    t0 = time.perf_counter()
+    out["neutral"] = _learn_neutral()
+    log(f"[learn] neutrality in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
 PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
                   "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400,
-                  "plants": 600, "cases": 400}
+                  "plants": 600, "cases": 400, "learn": 300}
 
 
 def _guarded(name, fn):
@@ -4233,27 +4776,33 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market,plants,"
-                    "cases",
+                    "cases,learn",
                     help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
-                    "serve, market, plants, cases (device and build always run)")
+                    "serve, market, plants, cases, learn (device and build always run)")
     ap.add_argument("--cpu-tes-gradient", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--year-highs", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cpu_tes_gradient:  # the plants phase's CPU reference child
         _cpu_tes_gradient(args.cpu_tes_gradient)
+        return 0
+    if args.year_highs:  # the year phase's HiGHS child
+        _year_highs(args.year_highs)
         return 0
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     phase_device()
     child = _start_cpu_tes_gradient() if "plants" in phases else None
+    highs = _start_year_highs() if "year" in phases else None
     try:
-        return _run_phases(phases, t_start, child)
+        return _run_phases(phases, t_start, child, highs)
     finally:
-        if child is not None and child["proc"].poll() is None:
-            child["proc"].kill()
-            child["proc"].wait()
+        for c in (child, highs):
+            if c is not None and c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
 
 
-def _run_phases(phases, t_start, child):
+def _run_phases(phases, t_start, child, highs):
     _guarded("build", phase_build)
     kernel_rows, max_err, main = (_guarded("kernel", phase_kernel) if "kernel" in phases
                                   else ([], None, {}))
@@ -4261,7 +4810,7 @@ def _run_phases(phases, t_start, child):
         _guarded("weekly", phase_weekly)
     if "golden" in phases:
         _guarded("golden", phase_golden)
-    year = _guarded("year", phase_year) if "year" in phases else {}
+    year = _guarded("year", lambda: phase_year(highs)) if "year" in phases else {}
     grad = (_guarded("grad", lambda: phase_grad(year.get("records"), year.get("highs_x")))
             if "grad" in phases else {})
     adaptive = (_guarded("adaptive", lambda: phase_adaptive(year.get("records"),
@@ -4273,6 +4822,8 @@ def _run_phases(phases, t_start, child):
     market = _guarded("market", phase_market) if "market" in phases else {}
     plants = _guarded("plants", lambda: phase_plants(child)) if "plants" in phases else {}
     cases = _guarded("cases", phase_cases) if "cases" in phases else {}
+    if "learn" in phases:
+        _guarded("learn", phase_learn)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     rec = {
         "name": "chain_sweep",
@@ -4286,6 +4837,7 @@ def _run_phases(phases, t_start, child):
                              "grad_bracket": grad.get("bracket_launches"),
                              "adaptive_year": adaptive.get("year", {}).get("launches"),
                              "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
+                             "adaptive_learned_warm": adaptive.get("learned", {}).get("launches"),
                              "serve": serve.get("launches"),
                              "market": market.get("launches"),
                              "plants": plants.get("chain_sweep_launches"),

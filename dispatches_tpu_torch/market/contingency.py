@@ -45,8 +45,9 @@ take ``device=`` (default ``"cuda"``) and ``dtype=`` (default float64):
 the K-lane stack is ONE batched `instantiate` on the device, screened by
 the port's `solve_lp_adaptive` or a `SlotEngine`; the PTDF / LODF algebra
 and the violation scan are host numpy, as in the JAX package. The
-learned screener (``screener=``) waits for `learn/screener.py` (ROADMAP
-A6) and is refused.
+learned screener (``screener=``, `learn/screener.py`) shrinks the outage
+set each round evaluates; the final dispatch is verified against the
+full set.
 """
 from __future__ import annotations
 
@@ -600,11 +601,14 @@ def secure_dispatch(
     Each round solves the (cut-augmented) base ``dcopf_program`` on
     `device`, projects post-contingency flows for the evaluated branch
     outages via the LODF matrix on the host, and appends one preventive
-    cut per overload; the loop ends when the branch set projects clean.
-    Every round evaluates the full set: the JAX package's learned
-    ``screener=`` (`learn/screener.py`) is not ported yet (ROADMAP A6) and
-    raises NotImplementedError, so ``screened`` and ``screen_fallback``
-    are always False.
+    cut per overload; the loop ends when the evaluated set projects clean.
+    With a ``screener`` (`learn/screener.py`: anything with a
+    ``screen(lp, cset) -> bool mask | None`` method, or artifact paths)
+    only the predicted-critical outages are evaluated inside the loop; the
+    final dispatch is then verified against the FULL set, and any
+    violation falls back to full-set constraint generation (counted in
+    ``screener_violation_fallback_total``), so the screener never gates
+    correctness. ``screener=None`` evaluates the full set every round.
 
     ``screen_gens=True`` additionally runs the batched corrective screen
     over the generator outages of `cset` (one ``solve_lp_adaptive``
@@ -613,11 +617,11 @@ def secure_dispatch(
     """
     from ..solvers.ipm import solve_lp
 
-    if screener is not None:
-        raise NotImplementedError(
-            "secure_dispatch(screener=...): the learned contingency screener "
-            "(learn/screener.py) is not ported yet (ROADMAP A6)"
-        )
+    if screener is not None and not hasattr(screener, "screen"):
+        # a path (or sequence of paths) to saved screener artifacts
+        from ..learn.screener import as_screener
+
+        screener = as_screener(screener, device=device)
 
     tracer = get_tracer()
     seed_metrics()
@@ -627,14 +631,33 @@ def secure_dispatch(
     limits = np.asarray(grid.branch_limit, float)
     all_idx = [c.index for c in cset
                if c.kind == "branch" and not islanding[c.index]]
-    obs_metrics.set_gauge("contingency_screened_share", 1.0)
+    params = {k: np.asarray(v) for k, v in base_params.items()}
+
+    # screened evaluation set (never gates correctness: full verify below)
+    eval_idx = list(all_idx)
+    screened = False
+    if screener is not None and all_idx:
+        base_lp0 = dcopf_program(grid).instantiate(params, dtype=dtype, device=device)
+        mask = screener.screen(base_lp0, cset)
+        if mask is not None:
+            bidx = [c.index for c in cset if c.kind == "branch"]
+            eval_idx = [
+                l for l, keep in zip(bidx, np.asarray(mask, bool))
+                if keep and not islanding[l]
+            ]
+            screened = len(eval_idx) < len(all_idx)
+    obs_metrics.set_gauge(
+        "contingency_screened_share",
+        (len(eval_idx) / len(all_idx)) if all_idx else 1.0,
+    )
 
     cuts: List[Tuple[Dict[int, float], float]] = []
     seen_cuts = set()
     violated: set = set()
     sol = prog = None
     rounds = 0
-    params = {k: np.asarray(v) for k, v in base_params.items()}
+    fallback = False
+    active_idx = eval_idx
 
     while rounds < max_rounds:
         rounds += 1
@@ -643,7 +666,7 @@ def secure_dispatch(
         lp = prog.instantiate(params, dtype=dtype, device=device)
         sol = solve_lp(lp, **solver_kw)
         f0 = _base_flows(prog, sol.x, len(grid.branch_b))
-        viols = _find_violations(f0, lodf, limits, all_idx, rel_tol)
+        viols = _find_violations(f0, lodf, limits, active_idx, rel_tol)
         obs_metrics.inc("contingency_violations_total", len(viols))
         fresh = 0
         for l, m, fpost in viols:
@@ -659,16 +682,32 @@ def secure_dispatch(
             "contingency_event",
             phase="round",
             round=rounds,
-            evaluated=len(all_idx),
+            evaluated=len(active_idx),
             K=len(all_idx),
             violations=len(viols),
             cuts_added=fresh,
             cuts_total=len(cuts),
-            screened=False,
+            screened=screened and active_idx is eval_idx,
         )
-        if not viols or fresh == 0:
-            # clean, or violations persist but generate no new cuts: stuck
+        if not viols:
+            if active_idx is eval_idx and screened:
+                # screened loop converged: verify the FULL set
+                escapes = _find_violations(f0, lodf, limits, all_idx, rel_tol)
+                if escapes:
+                    fallback = True
+                    obs_metrics.inc(
+                        "screener_violation_fallback_total", len(escapes)
+                    )
+                    if hasattr(screener, "note_violation_fallback"):
+                        screener.note_violation_fallback(len(escapes))
+                    active_idx = all_idx
+                    continue
+                obs_metrics.inc("screener_accept_total")
+                if hasattr(screener, "note_accept"):
+                    screener.note_accept()
             break
+        if fresh == 0:
+            break  # violations persist but generate no new cuts: stuck
 
     # final full-set projection — the escaped-violation gate
     f0 = _base_flows(prog, sol.x, len(grid.branch_b))
@@ -680,7 +719,8 @@ def secure_dispatch(
     if checker is not None:
         conf = checker.check_row(lp, sol, entry="secure_dispatch")
     lmp = sol.y[prog.balance_row0 : prog.balance_row0 + prog.n_bus].cpu().numpy()
-    tracer.solve_event("secure_dispatch", sol, ctg="full", conformance=conf)
+    tracer.solve_event("secure_dispatch", sol, ctg="screened" if screened else "full",
+                       conformance=conf)
 
     gen_screen = None
     if screen_gens and cset.gen_indices():
@@ -701,9 +741,9 @@ def secure_dispatch(
         rounds=rounds,
         feasible=not escapes,
         escaped_violations=len(escapes),
-        screened=False,
-        screen_fallback=False,
-        evaluated=len(all_idx),
+        screened=screened,
+        screen_fallback=fallback,
+        evaluated=len(eval_idx),
         total_branch_ctg=len(all_idx),
         conformance=conf,
         violated_outages=tuple(sorted(violated)),
@@ -717,8 +757,8 @@ def secure_dispatch(
         cuts_total=len(cuts),
         feasible=result.feasible,
         escaped=len(escapes),
-        screened=False,
-        screen_fallback=False,
+        screened=screened,
+        screen_fallback=fallback,
         shrink=result.shrink_ratio,
     )
     return result

@@ -26,19 +26,21 @@ feeds the ``solve_residual_*`` histograms and the
 ``solve_conformance_total`` / ``solve_inaccurate_total`` counters, and
 renders the ``inaccurate`` verdict. The checker only reads solutions, so
 ``conformance=`` on the adaptive entry points is bitwise-neutral.
-`default_conformance_rules` needs the alerting layer (`obs/alerts`),
-which the port does not have yet.
+`default_conformance_rules` is the alert pack (``accuracy_burn``,
+``canary_mismatch``) services install next to
+`alerts.default_fleet_rules` when the plane is on.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, fields as _dc_fields
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from . import metrics as obs_metrics
+from .alerts import AlertRule
 from .health import Verdict, severity
 
 # log-spaced ladder for relative-residual histograms
@@ -407,10 +409,25 @@ def escalate_verdict(verdict: str, conf: Optional[Mapping[str, Any]]) -> str:
     return verdict
 
 
-def default_conformance_rules(*, window: float = 60.0):
-    """The JAX package's alert pack for this plane builds `obs/alerts`
-    AlertRules; the port has no alerting layer yet."""
-    raise NotImplementedError(
-        "default_conformance_rules needs obs/alerts (AlertRule), which is "
-        "not ported yet"
-    )
+def default_conformance_rules(*, window: float = 60.0) -> List[AlertRule]:
+    """The alert pack services add to `alerts.default_fleet_rules` when
+    the conformance plane (or a canary scheduler) is active. Both
+    counters are zero-seeded at service build so the rate rules see a
+    flat baseline, not an absent series."""
+    return [
+        AlertRule(
+            name="accuracy_burn", series="solve_inaccurate_total",
+            kind="rate", op=">", bound=0.0, window=window, for_=0.0,
+            severity="page",
+            description="harvested solutions are failing their KKT "
+            "conformance policy (silent wrong answers reaching callers)",
+        ),
+        AlertRule(
+            name="canary_mismatch", series="canary_mismatch_total",
+            kind="rate", op=">", bound=0.0, window=window, for_=0.0,
+            severity="page",
+            description="a golden canary solve came back outside "
+            "tolerance of its certified reference (bad warm artifact, "
+            "mis-mapped lane switch, or stale compile cache)",
+        ),
+    ]

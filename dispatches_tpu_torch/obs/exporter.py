@@ -23,10 +23,16 @@ three endpoints an operator actually points things at:
   last scores. 404 until a callback is attached, so deployments without
   the accuracy plane cost nothing.
 
-The JAX package's ``/query`` and ``/alerts`` (its time-series store and
-alert manager) and ``/capacity`` and ``/lanes`` (its capacity plane and
-lane observatory) come with ROADMAP A7: their constructor arguments
-raise NotImplementedError, and the two paths answer 501.
+- ``/query``   — the attached `obs.timeseries.SeriesStore`
+  (``?name=...&window=...&agg=raw|rate|delta``, other parameters match
+  labels); 404 until a store is attached.
+- ``/alerts``  — the attached `obs.alerts.AlertManager`'s report.
+- ``/lanes``   — the attached ``lanes_fn`` (the service's
+  `lane_report`): the lane observatory's scoreboards and route advice.
+
+The JAX package's ``/capacity`` (its capacity plane) comes with ROADMAP
+A7: ``capacity_fn=`` raises NotImplementedError, and the path answers
+501.
 
 Design rules, same as the rest of `obs`: stdlib only, off by default
 (nothing starts a server unless a tool passes ``--exporter-port``),
@@ -70,19 +76,18 @@ class TelemetryExporter:
         capacity_fn: Optional[Callable[[], Dict[str, Any]]] = None,
         lanes_fn: Optional[Callable[[], Dict[str, Any]]] = None,
     ):
-        for name, v in (("store", store), ("alerts", alerts),
-                        ("capacity_fn", capacity_fn), ("lanes_fn", lanes_fn)):
-            if v is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet (ROADMAP A7)"
-                )
+        if capacity_fn is not None:
+            raise NotImplementedError("capacity_fn= is not ported yet (ROADMAP A7)")
         self.host = str(host)
         self.port = int(port)
         self.registry = registry
         self.health_fn = health_fn
         self.slo_fn = slo_fn
         self.slos = slos
+        self.store = store  # obs.timeseries.SeriesStore, serves /query
+        self.alerts = alerts  # obs.alerts.AlertManager, serves /alerts
         self.conformance_fn = conformance_fn  # serves /conformance
+        self.lanes_fn = lanes_fn  # serves /lanes
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -114,10 +119,35 @@ class TelemetryExporter:
             ],
         }
 
+    def _query(self, qs: str):
+        """``/query``: name (required), window (seconds, default 300),
+        agg (raw|rate|delta); any other parameter is a label match."""
+        from urllib.parse import parse_qsl
+
+        if self.store is None:
+            return 404, "text/plain; charset=utf-8", b"no series store attached\n"
+        params = dict(parse_qsl(qs, keep_blank_values=True))
+        name = params.pop("name", None)
+        if not name:
+            return (
+                400, "application/json",
+                _json_bytes({"error": "missing required parameter: name"}),
+            )
+        window = float(params.pop("window", 300.0))
+        agg = params.pop("agg", "raw")
+        series = self.store.query(name, params or None, window=window, agg=agg)
+        return 200, "application/json", _json_bytes({
+            "name": name,
+            "labels": params,
+            "window": window,
+            "agg": agg,
+            "series": series,
+        })
+
     def handle_path(self, path: str):
         """Route one GET: returns (status, content_type, body_bytes).
         Exposed for tests that don't want a real socket."""
-        path = path.partition("?")[0]
+        path, _, qs = path.partition("?")
         try:
             if path == "/metrics":
                 body = self._registry().render_prometheus()
@@ -130,7 +160,20 @@ class TelemetryExporter:
                 return 200, "application/json", _json_bytes(self._slo())
             if path == "/snapshot":
                 return 200, "application/json", _json_bytes(self._registry().snapshot())
-            if path in ("/query", "/alerts"):
+            if path == "/query":
+                return self._query(qs)
+            if path == "/alerts":
+                if self.alerts is None:
+                    return 404, "text/plain; charset=utf-8", b"no alert manager attached\n"
+                return 200, "application/json", _json_bytes(self.alerts.report())
+            if path == "/lanes":
+                if self.lanes_fn is None:
+                    return (
+                        404, "text/plain; charset=utf-8",
+                        b"no lane observatory attached\n",
+                    )
+                return 200, "application/json", _json_bytes(self.lanes_fn())
+            if path == "/capacity":
                 return (
                     501, "text/plain; charset=utf-8",
                     b"not ported yet (ROADMAP A7)\n",

@@ -48,14 +48,29 @@ lanes with new problems between chunks, instead of compacting. A lane it
 harvests is bitwise the same lane in a one-shot `solve_lp_batch` of
 `bucket` lanes on the same device (`SlotEngine`).
 
-The JAX package's `perf`, `lanes`, `lane_policy`, `lane_model` and
-`warm_predictor` options are not ported yet; they raise
-NotImplementedError, naming the ROADMAP item that brings them. Its
+``warm_predictor=`` (a `learn.WarmStartPredictor`, a `WarmStartModel`
+or an artifact path) seeds the lanes of a call without an explicit
+``warm_start`` through the solvers' per-lane safeguard (`_predict_warm`);
+a seed the safeguard rejects lands the lane bitwise on its cold start,
+and a predictor that degrades leaves the call plainly cold.
+
+``lanes=`` (True, a `LaneConfig`, a mapping or a `LaneObservatory`)
+journals a ``lane_decision`` per solved row and samples shadow-lane
+probes (`obs.lanes`); it only reads the results. ``lane_policy="advice"``
+re-lanes an unbatched, trace-free dense or PDHG solve onto the lane the
+observatory's settled ``route_advice`` names, ``"model"`` onto the lane
+the learned router (``lane_model=``, `learn.laneroute`) predicts, with
+the advice as its fallback; ``"static"`` and None never re-lane
+(`_relane_advice`).
+
+The JAX package's `perf` option is not ported yet; it raises
+NotImplementedError, naming the ROADMAP item that brings it. Its
 persistent compile cache and compile-hit accounting manage XLA's
 executables and have no counterpart in eager PyTorch.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -311,6 +326,140 @@ def _check_conformance(conformance, fields_cls, data, axes, batch, out, entry,
     return summary
 
 
+def _sync_of(data) -> None:
+    """Wait for the card when `data` lives there (a no-op on the CPU), so
+    a wall read after it is the device's."""
+    dev = data[0].device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _note_lanes(lanes, fields_cls, data, axes, batch, out, entry, lane, t_wall,
+                *, stats=None, predicted=None):
+    """Post-drive lane-decision hook shared by the adaptive entry points:
+    journal one ``lane_decision`` per solved row (`obs.lanes`), the
+    batched wall (since `t_wall`, the device's) amortized across rows, and
+    let the observatory sample shadow probes from the unbatched rows. It
+    only reads the results, so ``lanes=`` anything leaves them bitwise
+    as they are."""
+    from ..obs import health as obs_health
+    from ..obs.lanes import as_lanes
+
+    obs = as_lanes(lanes)
+    if obs is None:
+        return None
+    _sync_of(data)
+    wall = time.monotonic() - t_wall
+    if stats is not None:
+        stats["lane"] = lane
+    verdicts = obs_health.classify_solution(out) or []
+    its = np.atleast_1d(_host(getattr(out, "iterations", 0)))
+    if batch is None:
+        v = verdicts[0].verdict if verdicts else "healthy"
+        obs.note_solve(
+            fields_cls(*data), lane, entry=entry, wall=wall,
+            iterations=int(its[0]), verdict=v,
+            predicted_iterations=(
+                None if predicted is None
+                else float(predicted.get("iterations", 0.0))
+            ),
+        )
+        return obs
+    share = wall / batch
+    for i in range(batch):
+        row = fields_cls(*(a[i] if ax is not None else a for a, ax in zip(data, axes)))
+        v = verdicts[i].verdict if i < len(verdicts) else "healthy"
+        obs.note_solve(
+            row, lane, entry=entry, wall=share,
+            iterations=int(its[i]) if i < its.shape[0] else None, verdict=v,
+        )
+    return obs
+
+
+def _relane_advice(lanes, lane_policy, problem, native_lane, batch, trace,
+                   lane_model=None, stats=None, pred_out=None):
+    """Resolve the opt-in lane-policy consultation: returns the advised
+    lane when (and only when) the policy names a lane for this problem's
+    family that differs from the native lane AND the solve is a shape the
+    paired lane can take over (unbatched, no trace stitching). Anything
+    else returns None — the native path runs untouched, which keeps the
+    default bitwise as it was.
+
+    Policies: None and ``"static"`` never re-lane. ``"advice"`` consults
+    the observatory's hysteresis-settled ``route_advice``. ``"model"``
+    consults the learned lane-portfolio router (`learn.laneroute`,
+    ``lane_model=``) per instance, falling back to the ``"advice"``
+    scoreboards when the model has nothing for this family. A model
+    prediction fills ``pred_out`` / ``stats["lane_prediction"]`` with the
+    predicted lane and expected iteration count even when it names the
+    native lane."""
+    if lane_policy not in (None, "static", "advice", "model"):
+        raise ValueError(
+            f"unknown lane_policy {lane_policy!r} "
+            "(expected None, 'static', 'advice', or 'model')"
+        )
+    if lane_policy in (None, "static"):
+        return None
+    if batch is not None or trace:
+        return None
+    from ..obs.lanes import ALTERNATE, as_lanes
+
+    obs = as_lanes(lanes) if lanes is not None else None
+    advised = None
+    if lane_policy == "model" and lane_model is not None:
+        from ..learn.laneroute import as_laneroute
+
+        router = as_laneroute(
+            lane_model, fallback=obs.advice if obs is not None else None,
+            device=problem.b.device,
+        )
+        pred = router.route(problem) if router is not None else None
+        if pred is not None:
+            advised = pred.lane
+            record = {"lane": pred.lane, "iterations": pred.iterations}
+            if pred_out is not None:
+                pred_out.update(record)
+            if stats is not None:
+                stats["lane_prediction"] = record
+    if advised is None:
+        # "advice", or a model miss falling back to the scoreboards
+        if obs is None:
+            return None
+        advised = obs.advice_for(problem)
+    if advised is None or advised == native_lane:
+        return None
+    if ALTERNATE.get(native_lane) != advised:
+        return None
+    return advised
+
+
+def _predict_warm(predictor, fields_cls, data, axes, batch, entry, meta=None):
+    """Seeds for an adaptive entry from a `learn.WarmStartPredictor` (or a
+    `WarmStartModel` / artifact path, loaded on the data's device): the
+    predictor seeds the batch without unstacking it (a shared field is
+    fingerprinted once), and the seeds come back as the ``warm_start=``
+    tuple (stacked when batched). A banded seed needs the entry's
+    `TimeStructure` `meta`. Returns None on any degradation — the entry
+    then runs plainly cold, the path without a predictor."""
+    try:
+        from ..learn.predictor import WarmStartPredictor
+
+        if not isinstance(predictor, WarmStartPredictor):
+            predictor = WarmStartPredictor(predictor, device=data[0].device)
+        if batch is None:
+            problem = fields_cls(*(a.unsqueeze(0) for a in data))
+            seeds, _ = predictor.seed_batch(problem, [0] * len(data), 1,
+                                            entry=entry, meta=meta)
+            return seeds[0] if seeds else None
+        seeds, _ = predictor.seed_batch(fields_cls(*data), axes, batch,
+                                        entry=entry, meta=meta)
+        if not seeds:
+            return None
+        return tuple(np.stack([s[j] for s in seeds]) for j in range(len(seeds[0])))
+    except Exception:
+        return None
+
+
 def solve_lp_adaptive(
     lp,
     *,
@@ -340,24 +489,49 @@ def solve_lp_adaptive(
     `runtime.remedy.RemedyEngine`, `RemedyPolicy`, dict or True) runs the
     escalation ladder on lanes that retire unhealthy, and records each in
     ``stats["remediated"]``; its last rung re-solves a stuck lane through
-    PDHG. `conformance` certifies the returned lanes (module docstring).
-
-    `warm_predictor`, `perf`, `lanes`, `lane_policy` and `lane_model` are
-    not ported yet and raise NotImplementedError."""
+    PDHG. `conformance` certifies the returned lanes; `warm_predictor`,
+    `lanes`, `lane_policy` and `lane_model` as in the module docstring
+    (the paired lane here is PDHG, reached through `runtime.remedy`'s
+    program and row maps; an advised lane that does not converge falls
+    back to the native path). `perf` is not ported yet and raises
+    NotImplementedError."""
     from ..core.program import LPData
     from ..solvers.ipm import _LP_NDIM, IPMSolution, solve_lp
 
-    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
-                     lane_policy=lane_policy, lane_model=lane_model)
+    _reject_deferred(perf=perf)
+    t_wall = time.monotonic()
     axes, batch = _batch_axes(LPData, _LP_NDIM, lp)
+    _pred: dict = {}
+    if _relane_advice(
+        lanes, lane_policy, lp, "dense", batch, trace,
+        lane_model=lane_model, stats=stats, pred_out=_pred,
+    ) == "pdhg":
+        from ..solvers.pdhg import solve_lp_pdhg
+        from .remedy import _ipm_row_from_pdhg, dense_to_sparse
+
+        psol = solve_lp_pdhg(
+            dense_to_sparse(lp), tol=max(float(solver_kw.get("tol") or 1e-6), 1e-6)
+        )
+        if bool(psol.converged):
+            sol0 = _ipm_row_from_pdhg(psol, lp)
+            if stats is not None:
+                stats["relaned"] = "pdhg"
+            _check_conformance(conformance, LPData, lp, axes, None, sol0,
+                               "solve_lp", stats=stats)
+            _note_lanes(lanes, LPData, lp, axes, None, sol0, "solve_lp", "pdhg",
+                        t_wall, stats=stats, predicted=_pred or None)
+            return sol0
+        # the advised lane could not certify a takeover: native path
     if remedy is not None:
         from .remedy import as_remedy
 
         remedy = as_remedy(remedy, solver_kw=solver_kw, entry="solve_lp")
+    if warm_start is None and warm_predictor is not None:
+        warm_start = _predict_warm(warm_predictor, LPData, lp, axes, batch, "solve_lp")
     max_iter = solver_kw.get("max_iter", 60)
     if batch is None:
         out0 = solve_lp(lp, warm_start=warm_start, trace=trace, **solver_kw)
-        if remedy is None and conformance is None:
+        if remedy is None and conformance is None and lanes is None:
             return out0
         sol0, tr0 = out0 if trace else (out0, None)
         if remedy is not None:
@@ -365,6 +539,8 @@ def solve_lp_adaptive(
                                       max_iter, stats=stats)
         _check_conformance(conformance, LPData, lp, axes, None, sol0, "solve_lp",
                            stats=stats)
+        _note_lanes(lanes, LPData, lp, axes, None, sol0, "solve_lp", "dense",
+                    t_wall, stats=stats, predicted=_pred or None)
         return (sol0, tr0) if trace else sol0
 
     seg_cold, seg_resume = dense_segments(trace, solver_kw)
@@ -378,6 +554,8 @@ def solve_lp_adaptive(
                                 max_iter, stats=stats)
     _check_conformance(conformance, LPData, lp, axes, batch, out, "solve_lp",
                        stats=stats)
+    _note_lanes(lanes, LPData, lp, axes, batch, out, "solve_lp", "dense", t_wall,
+                stats=stats)
     return (out, tr) if trace else out
 
 
@@ -406,22 +584,30 @@ def solve_lp_banded_adaptive(
     ``remedy=True`` works as it stands. `conformance` certifies the
     returned lanes through the banded certificate, the reduced solution
     scattered back to the flat frame through ``meta.col_pos``.
-    `warm_predictor`, `perf`, `lanes` and `lane_policy` are not ported yet
-    and raise NotImplementedError."""
+    `warm_predictor` seeds the lanes in the banded solver's frame (the
+    reduced columns of ``meta.col_pos``, the banded rows); `lanes`
+    journals lane decisions, and as the banded lane has no paired lane,
+    every `lane_policy` is accepted and none re-lanes. `perf` is not
+    ported yet and raises NotImplementedError."""
     from ..solvers.ipm import IPMSolution
     from ..solvers.structured import _BASE_NDIM, BandedLP, solve_lp_banded, solve_lp_banded_batch
 
-    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
-                     lane_policy=lane_policy)
+    _reject_deferred(perf=perf)
+    t_wall = time.monotonic()
     axes, batch = _batch_axes(BandedLP, _BASE_NDIM, blp)
+    _relane_advice(lanes, lane_policy, blp, "banded", batch, trace)
     if remedy is not None:
         from .remedy import as_remedy
 
         remedy = as_remedy(remedy, solver_kw=solver_kw, entry="solve_lp_banded")
+    if warm_start is None and warm_predictor is not None:
+        warm_start = _predict_warm(
+            warm_predictor, BandedLP, blp, axes, batch, "solve_lp_banded", meta=meta,
+        )
     max_iter = solver_kw.get("max_iter", 60)
     if batch is None:
         out0 = solve_lp_banded(meta, blp, warm_start=warm_start, trace=trace, **solver_kw)
-        if remedy is None and conformance is None:
+        if remedy is None and conformance is None and lanes is None:
             return out0
         sol0, tr0 = out0 if trace else (out0, None)
         if remedy is not None:
@@ -429,6 +615,8 @@ def solve_lp_banded_adaptive(
                                       max_iter, meta=meta, stats=stats)
         _check_conformance(conformance, BandedLP, blp, axes, None, sol0,
                            "solve_lp_banded", meta=meta, stats=stats)
+        _note_lanes(lanes, BandedLP, blp, axes, None, sol0, "solve_lp_banded",
+                    "banded", t_wall, stats=stats)
         return (sol0, tr0) if trace else sol0
 
     def segment(d, w, s, stop):
@@ -450,6 +638,8 @@ def solve_lp_banded_adaptive(
                                 max_iter, meta=meta, stats=stats)
     _check_conformance(conformance, BandedLP, blp, axes, batch, out,
                        "solve_lp_banded", meta=meta, stats=stats)
+    _note_lanes(lanes, BandedLP, blp, axes, batch, out, "solve_lp_banded",
+                "banded", t_wall, stats=stats)
     return (out, tr) if trace else out
 
 
@@ -480,23 +670,46 @@ def solve_lp_pdhg_adaptive(
     `remedy` ladder's last rung re-solves a stuck lane through the dense
     IPM; `conformance` certifies the returned lanes. The PDLP controls
     (``adaptive_restarts``, ``primal_weight``, ``linesearch``, ``polish``)
-    ride through ``solver_kw`` into `solve_lp_pdhg`. `warm_predictor`,
-    `perf`, `lanes`, `lane_policy` and `lane_model` are not ported yet and
-    raise NotImplementedError."""
+    ride through ``solver_kw`` into `solve_lp_pdhg`. `warm_predictor`
+    seeds ``(x, y)``; `lanes`, `lane_policy` and `lane_model` mirror
+    `solve_lp_adaptive`, the paired lane here the dense IPM. `perf` is
+    not ported yet and raises NotImplementedError."""
     from ..core.program import SparseLP
     from ..solvers.pdhg import _SPARSE_NDIM, PDHGSolution, solve_lp_pdhg
 
-    _reject_deferred(warm_predictor=warm_predictor, perf=perf, lanes=lanes,
-                     lane_policy=lane_policy, lane_model=lane_model)
+    _reject_deferred(perf=perf)
+    t_wall = time.monotonic()
     axes, batch = _batch_axes(SparseLP, _SPARSE_NDIM, lps)
+    _pred: dict = {}
+    if _relane_advice(
+        lanes, lane_policy, lps, "pdhg", batch, trace,
+        lane_model=lane_model, stats=stats, pred_out=_pred,
+    ) == "dense":
+        from ..solvers.ipm import solve_lp
+        from .remedy import _pdhg_row_from_ipm, sparse_to_dense
+
+        isol = solve_lp(sparse_to_dense(lps), tol=float(solver_kw.get("tol") or 1e-8))
+        if bool(isol.converged):
+            sol0 = _pdhg_row_from_ipm(isol, lps)
+            if stats is not None:
+                stats["relaned"] = "dense"
+            _check_conformance(conformance, SparseLP, lps, axes, None, sol0,
+                               "solve_lp_pdhg", stats=stats)
+            _note_lanes(lanes, SparseLP, lps, axes, None, sol0, "solve_lp_pdhg",
+                        "dense", t_wall, stats=stats, predicted=_pred or None)
+            return sol0
+        # the advised lane could not certify a takeover: native path
     if remedy is not None:
         from .remedy import as_remedy
 
         remedy = as_remedy(remedy, solver_kw=solver_kw, entry="solve_lp_pdhg")
+    if warm_start is None and warm_predictor is not None:
+        warm_start = _predict_warm(warm_predictor, SparseLP, lps, axes, batch,
+                                   "solve_lp_pdhg")
     max_iter = solver_kw.get("max_iter", 100_000)
     if batch is None:
         out0 = solve_lp_pdhg(lps, warm_start=warm_start, trace=trace, **solver_kw)
-        if remedy is None and conformance is None:
+        if remedy is None and conformance is None and lanes is None:
             return out0
         sol0, tr0 = out0 if trace else (out0, None)
         if remedy is not None:
@@ -504,6 +717,8 @@ def solve_lp_pdhg_adaptive(
                                       max_iter, stats=stats)
         _check_conformance(conformance, SparseLP, lps, axes, None, sol0,
                            "solve_lp_pdhg", stats=stats)
+        _note_lanes(lanes, SparseLP, lps, axes, None, sol0, "solve_lp_pdhg",
+                    "pdhg", t_wall, stats=stats, predicted=_pred or None)
         return (sol0, tr0) if trace else sol0
     if axes[0] == 0 or axes[1] == 0:
         raise ValueError(
@@ -534,6 +749,8 @@ def solve_lp_pdhg_adaptive(
                                 max_iter, stats=stats)
     _check_conformance(conformance, SparseLP, lps, axes, batch, out,
                        "solve_lp_pdhg", stats=stats)
+    _note_lanes(lanes, SparseLP, lps, axes, batch, out, "solve_lp_pdhg", "pdhg",
+                t_wall, stats=stats)
     return (out, tr) if trace else out
 
 
@@ -624,7 +841,17 @@ class SlotEngine:
 
     `fields` is the problem NamedTuple class (`LPData`); every field is
     stacked per slot from the admitted rows, on `device`. Harvested rows
-    have numpy leaves. (The JAX engine's `shared` fields and custom
+    have numpy leaves.
+
+    `warm_fn` (learned warm starts, `make_dense_engine(warm_predictor=)`)
+    seeds the freshly admitted slots' cold states: ``warm_fn(rows)``
+    returns ``(seeds, accepted)`` for their problems, the seeds go through
+    the solver's per-lane safeguard (a rejected seed is bitwise the cold
+    start), and a harvested lane's stats carry ``warm_source`` /
+    ``warm_accepted``, its accepted iterations credited against
+    ``warm_fn.iters_baseline`` in
+    ``warm_start_iters_saved_total{source=...}``. With `warm_fn` None the
+    cold dispatch passes no seeds, as before. (The JAX engine's `shared` fields and custom
     `done_flag` serve its PDHG and banded engines, which the serving tier
     does not build.)
     """
@@ -641,6 +868,7 @@ class SlotEngine:
         max_iter: int = 60,
         opt_key=(),
         device="cuda",
+        warm_fn=None,
     ):
         if bucket <= 0:
             raise ValueError(f"bucket must be positive (got {bucket})")
@@ -676,6 +904,10 @@ class SlotEngine:
         # optional obs.conformance.ConformanceChecker: every harvested row
         # is certified into lane_stats["conformance"]; rows are not touched
         self.conformance = None
+        self._warm_fn = warm_fn
+        self._warm_buf = None  # (bucket, ...) host seed mirror per part
+        self._warm_src = [None] * bucket  # slot -> seed source label
+        self._warm_ok = [False] * bucket  # slot -> safeguard accept verdict
 
     # -- slot management ----------------------------------------------
     def free_slots(self) -> int:
@@ -707,6 +939,8 @@ class SlotEngine:
                 buf[i] = r
             self._tokens[i] = token
             self._fresh[i] = True
+            self._warm_src[i] = None
+            self._warm_ok[i] = False
             self._it_mark[i] = 0
             self._stale.add(i)
             if self._st is not None:
@@ -730,6 +964,8 @@ class SlotEngine:
         # at stop 0
         self._tokens[i] = None
         self._fresh[i] = False
+        self._warm_src[i] = None
+        self._warm_ok[i] = False
 
     # -- the chunk step ------------------------------------------------
     def _sol_rows(self):
@@ -746,6 +982,42 @@ class SlotEngine:
             buf[i] if device is None else torch.as_tensor(buf[i], device=device)
             for buf in self._buf
         ))
+
+    def _warm_seeds(self):
+        """Per-part ``(bucket, ...)`` warm tensors for the cold dispatch.
+        Fresh occupied slots get seeds from `warm_fn` (NaN seeds when the
+        predictor degrades — the safeguard rejects those per lane, landing
+        bitwise on the cold start); every other row keeps what the seed
+        buffer holds, as its cold state is not scattered in."""
+        fresh = [i for i, (f, t) in enumerate(zip(self._fresh, self._tokens))
+                 if f and t is not None]
+        rows = [self._row_problem(i) for i in fresh]
+        seeds, accepted = self._warm_fn(rows)
+        src = getattr(self._warm_fn, "source", "learned")
+        if seeds is None:
+            # no layout known: solver-rejected NaN seeds from the lane data
+            seeds = [
+                tuple(np.full((k,), np.nan, r.b.dtype)
+                      for k in (r.c.shape[-1], r.b.shape[-1], r.c.shape[-1],
+                                r.c.shape[-1]))
+                for r in rows
+            ]
+            accepted = None
+        if self._warm_buf is None:
+            self._warm_buf = [np.zeros((self.bucket,) + np.shape(p), np.asarray(p).dtype)
+                              for p in seeds[0]]
+        for j, i in enumerate(fresh):
+            ok = bool(accepted[j]) if accepted else False
+            for buf, part in zip(self._warm_buf, seeds[j]):
+                part = np.asarray(part)
+                if part.shape == buf.shape[1:]:
+                    buf[i] = part
+                else:  # a malformed seed: rejected, not a crash
+                    buf[i] = np.nan
+                    ok = False
+            self._warm_src[i] = src
+            self._warm_ok[i] = ok
+        return tuple(torch.from_numpy(b).to(self.device, copy=True) for b in self._warm_buf)
 
     def _sync_rows(self) -> None:
         """Bring the device batch up to the host mirror: the whole batch on
@@ -778,7 +1050,8 @@ class SlotEngine:
             if self._zero_stops is None:
                 self._zero_stops = torch.zeros(self.bucket, dtype=torch.int64,
                                                device=self.device)
-            _, st0 = self.seg_cold(self._d_cur, None, self._zero_stops)
+            w_arg = self._warm_seeds() if self._warm_fn is not None else None
+            _, st0 = self.seg_cold(self._d_cur, w_arg, self._zero_stops)
             # the first chunk routes through the same scatter as every later
             # one (every row selected)
             first = self._st is None
@@ -817,6 +1090,18 @@ class SlotEngine:
                     continue
                 row = type(sol)(*(leaf[i] for leaf in sol_np))
                 lane_stats = {"iterations": int(its[i])}
+                src = self._warm_src[i]
+                if src is not None:
+                    lane_stats["warm_source"] = src
+                    lane_stats["warm_accepted"] = bool(self._warm_ok[i])
+                    base = getattr(self._warm_fn, "iters_baseline", None)
+                    if self._warm_ok[i] and base:
+                        # credited against the artifact's measured cold
+                        # baseline: the serve path never runs the lane cold
+                        saved = max(0.0, float(base) - float(its[i]))
+                        if saved > 0:
+                            obs_metrics.inc("warm_start_iters_saved_total", saved,
+                                            source=src, entry=self.entry)
                 if self.remedy is not None:
                     # the ladder re-solves on the engine's device
                     row, rinfo = self.remedy.remediate_solution_row(
@@ -866,18 +1151,38 @@ def make_dense_engine(
     re-solves lanes that harvest unhealthy up the escalation ladder;
     `conformance` (True / `ConformancePolicy` / `ConformanceChecker`)
     certifies every harvested row and leaves it as it is.
-    `warm_predictor` (learned warm starts) is not ported yet and raises
-    NotImplementedError."""
-    from ..core.program import LPData
-    from ..solvers.ipm import _reject_deferred
 
-    _reject_deferred(warm_predictor=warm_predictor)
+    `warm_predictor` (a `learn.WarmStartPredictor`, a `WarmStartModel`,
+    or an artifact path, loaded on `device`) seeds every admitted lane
+    through the safeguarded warm-start path, and extends the option key
+    with the artifact's family; with it None (the default) the engine and
+    its solution bits are the cold engine's."""
+    from ..core.program import LPData
+
     solver_kw.setdefault("max_iter", 60)
     seg_cold, seg_resume = dense_segments(trace, solver_kw)
+    opt_key = _opt_key(solver_kw)
+    warm_fn = None
+    if warm_predictor is not None:
+        from ..learn.predictor import WarmStartPredictor
+
+        if not isinstance(warm_predictor, WarmStartPredictor):
+            warm_predictor = WarmStartPredictor(warm_predictor, device=device)
+
+        dev = torch.device(device)
+
+        def warm_fn(rows, _p=warm_predictor):
+            # the accept verdict replays the safeguard on the engine's device
+            rows = [LPData(*(torch.as_tensor(a, device=dev) for a in r)) for r in rows]
+            return _p.seed_rows(rows, entry="serve_dense")
+
+        warm_fn.source = warm_predictor.source
+        warm_fn.iters_baseline = warm_predictor.cold_iters_mean
+        opt_key = opt_key + (("warm_model", warm_predictor.model.family[:12]),)
     engine = SlotEngine(
         "serve_dense", LPData, seg_cold, seg_resume, bucket,
         chunk_iters=chunk_iters, max_iter=solver_kw["max_iter"],
-        opt_key=_opt_key(solver_kw), device=device,
+        opt_key=opt_key, device=device, warm_fn=warm_fn,
     )
     if remedy is not None:
         from .remedy import as_remedy

@@ -38,10 +38,12 @@ resolves complete / shed / deadline_exceeded across an induced shard
 kill. See docs/serving.md "Fleet & crash domains".
 
 The parent's remediation ladder re-solves on the fleet's `device`. The
-JAX package's time-series store, alert manager, capacity plane and lane
-observatory (``timeseries=``, ``store=``, ``alert_rules=``, ``slo_fn=``,
-``capacity=``, ``lanes=``, ``lane_policy=``) come with ROADMAP A7, and
-``lane_model=`` / ``warm_model=`` with A6: they raise NotImplementedError.
+time-series store and alert manager (``timeseries=``, ``store=``,
+``alert_rules=``, ``slo_fn=``), the lane observatory and its routing
+policies (``lanes=``, ``lane_policy=``, ``lane_model=``) and learned warm
+starts (``warm_model=``) are opt-in and leave the answers bitwise as they
+are; the JAX package's capacity plane (``capacity=``) comes with ROADMAP
+A7 and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -172,9 +174,7 @@ class FleetService:
     ):
         from ..solvers.ipm import _reject_deferred
 
-        _reject_deferred(timeseries=timeseries, store=store, alert_rules=alert_rules,
-                         slo_fn=slo_fn, capacity=capacity, lanes=lanes,
-                         lane_policy=lane_policy, lane_model=lane_model)
+        _reject_deferred(capacity=capacity)
         if not shards:
             raise ValueError("a fleet needs at least one shard")
         self._slots = [_ShardSlot(s) for s in shards]
@@ -227,6 +227,78 @@ class FleetService:
             from .canary import as_canary
 
             self.canary = as_canary(canary, clock=clock, service=self)
+        # lane observatory: the parent owns every request's problem row,
+        # so decision records, shadow-lane probes and scoreboards all run
+        # parent-side (shard children stay lane-free); probes tick from
+        # pump() after primary dispatch, never on the request path
+        self.lanes = None
+        if lanes is not None and lanes is not False:
+            from ..obs.lanes import as_lanes
+
+            self.lanes = as_lanes(
+                lanes, clock=clock, conformance=self.conformance,
+                solver_kw=ref.solver_kw,
+            )
+            self.lanes.seed_metrics(name, "dense")
+        # opt-in advice consumption: "advice" routes fingerprint-affine
+        # dispatches by the observatory's settled route_advice, "model"
+        # consults the trained lane-portfolio artifact first and degrades
+        # to the scoreboards; "static" and None never consult
+        if lane_policy not in (None, "static", "advice", "model"):
+            raise ValueError(
+                f"unknown lane_policy {lane_policy!r} "
+                "(expected None, 'static', 'advice', or 'model')"
+            )
+        self.lane_policy = lane_policy
+        self.lane_model = None
+        if lane_policy == "advice" and self.lanes is not None:
+            self.router.advice_fn = self.lanes.advice
+        elif lane_policy == "model":
+            from ..learn.laneroute import LaneRouter, as_laneroute
+
+            fb = self.lanes.advice if self.lanes is not None else None
+            self.lane_model = (
+                as_laneroute(lane_model, fallback=fb, device=self.device)
+                or LaneRouter(fallback=fb)
+            )
+            self.router.advice_fn = self.lane_model.advice
+        # time-series retention + alerting plane (off by default; it only
+        # reads registry floats): pump() samples the store on the service
+        # clock and evaluates the rule pack after every fresh sample; a
+        # shard's down / respawn forces a sample so the flip is captured
+        self.store = store
+        self.alerts = None
+        self._ts_force = False
+        if timeseries and self.store is None:
+            from ..obs.timeseries import SeriesStore
+
+            self.store = SeriesStore(clock=clock)
+        if self.store is not None:
+            from ..obs.alerts import AlertManager, default_fleet_rules
+
+            rules = (
+                default_fleet_rules(
+                    queue_limit=queue_limit,
+                    heartbeat_timeout=self.heartbeat_timeout,
+                )
+                if alert_rules is None
+                else list(alert_rules)
+            )
+            if alert_rules is None and (
+                self.conformance is not None or self.canary is not None
+            ):
+                from ..obs.conformance import default_conformance_rules
+
+                rules = list(rules) + default_conformance_rules()
+            if alert_rules is None and self.lanes is not None:
+                from ..obs.lanes import default_lane_rules
+
+                rules = list(rules) + default_lane_rules()
+            self.alerts = AlertManager(
+                self.store, rules, clock=clock, slo_fn=slo_fn
+            )
+            # zero-seed so the first poison produces a computable rate
+            self.store._registry().inc("poisoned_requests_total", 0)
         self._lock = threading.RLock()
         self._seq = 0
         self._thread: Optional[threading.Thread] = None
@@ -347,6 +419,10 @@ class FleetService:
                 self.canary.tick(now)
             self._dispatch(self.clock())
             done += self._enforce_inflight_deadlines()
+            if self.lanes is not None:
+                # shadow-lane probes at batch priority: after this cycle's
+                # primary dispatch and harvests
+                self.lanes.tick(self.clock())
             obs_metrics.set_gauge("serve_queue_depth", len(self.queue))
             mono = time.monotonic()
             for slot in self._slots:
@@ -360,6 +436,15 @@ class FleetService:
                         max(0.0, mono - slot.shard.last_pong),
                         shard=str(slot.shard.shard_id),
                     )
+            if self.store is not None:
+                t = self.clock()
+                sampled = (
+                    self.store.sample(t) if self._ts_force
+                    else self.store.maybe_sample(t)
+                )
+                self._ts_force = False
+                if sampled and self.alerts is not None:
+                    self.alerts.evaluate(t)
         return done
 
     def _harvest(self) -> int:
@@ -380,6 +465,10 @@ class FleetService:
                     req, row, msg.get("iterations"),
                     shard=slot.shard.shard_id, child_slot=msg.get("slot"),
                     journey=msg.get("journey"),
+                    warm_attrs={
+                        k: msg[k]
+                        for k in ("warm_source", "warm_accepted") if k in msg
+                    },
                     conformance=msg.get("conformance"),
                 )
                 done += 1
@@ -486,6 +575,7 @@ class FleetService:
             poisoned_lanes=len(inflight) - n,
             respawn_in_s=round(slot.respawn_at - time.monotonic(), 3),
         )
+        self._ts_force = True  # the down gauge must reach the store now
 
     def _spawn_slot(self, slot: _ShardSlot) -> bool:
         try:
@@ -525,6 +615,7 @@ class FleetService:
                         "shard_respawn", shard=slot.shard.shard_id,
                         respawn=slot.respawns, backoff_s=backoff_was,
                     )
+                    self._ts_force = True  # capture the up flip promptly
 
     def _dispatch(self, now: float) -> None:
         up = [s.shard for s in self._slots if s.state == "up"]
@@ -743,7 +834,7 @@ class FleetService:
 
     def _resolve_solved(
         self, req, row, iterations, *, shard: int, child_slot, journey=None,
-        conformance=None,
+        warm_attrs=None, conformance=None,
     ) -> None:
         self.completed += 1
         now = self.clock()
@@ -819,8 +910,16 @@ class FleetService:
             request_id=req.request_id, seq=req.seq,
             latency_s=latency, iterations=iterations, shard=shard,
             lane="dense",
-            **extra,
+            **(warm_attrs or {}), **extra,
         )
+        if self.lanes is not None:
+            # parent-side decision record: the fleet's shard engines are
+            # all dense; the wall is the end-to-end latency (the prober
+            # re-measures both lanes before scoring)
+            self.lanes.note_solve(
+                req.problem, "dense", entry=self.name, wall=latency,
+                iterations=iterations, verdict=verdict,
+            )
         if req.journey is not None:
             # started_at re-stamps on every dispatch, so a requeued
             # lane's marks cover only the attempt that answered
@@ -991,6 +1090,14 @@ class FleetService:
                 out["canary"] = self.canary.report()
         return out
 
+    def lane_report(self) -> dict:
+        """The exporter's ``/lanes`` payload: the lane observatory's
+        scoreboards and route advice. Empty when the plane is off."""
+        with self._lock:
+            if self.lanes is None:
+                return {}
+            return self.lanes.report()
+
     def stats(self) -> dict:
         with self._lock:
             out = {
@@ -1030,6 +1137,12 @@ class FleetService:
                 out["conformance"] = self.conformance.report()
             if self.canary is not None:
                 out["canary"] = self.canary.report()
+            if self.store is not None:
+                out["timeseries"] = self.store.stats()
+            if self.alerts is not None:
+                out["alerts_firing"] = self.alerts.firing()
+            if self.lanes is not None:
+                out["lanes"] = self.lanes.report()
             for status in ("ok", "cached"):
                 for q, tag in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
                     v = obs_metrics.histogram_quantile(
@@ -1087,18 +1200,26 @@ def make_dense_fleet(
     escalates failures to ``inaccurate``); ``canary`` (a goldens ``.npz``
     path, a golden list, or a `serve.canary.CanaryScheduler`) injects
     certified golden problems through the router and shard path from
-    ``pump()``. All off by default and neutral for solve results.
-    `timeseries`, `capacity`, `lanes` and `lane_policy` (ROADMAP A7) and
-    `warm_model` and `lane_model` (A6) are not ported yet and raise
-    NotImplementedError."""
+    ``pump()``. ``timeseries=True`` attaches an `obs.timeseries.SeriesStore`
+    and the `obs.alerts.default_fleet_rules` pack, sampled and evaluated
+    from ``pump()`` (``fleet.store.query(...)``, ``fleet.alerts.firing()``,
+    the exporter's ``/query`` and ``/alerts``). `warm_model` (an artifact
+    path from tools/torch_train_warmstart.py) makes every child seed its
+    admitted lanes through the safeguarded learned warm start. ``lanes``
+    (True / a mapping of `obs.lanes.LaneConfig` knobs / a
+    `LaneObservatory`) journals a ``lane_decision`` per completed solve
+    and re-solves a sampled fraction on the alternate IPM<->PDHG lane from
+    ``pump()``; ``lane_policy="advice"`` lets the router's affinity stage
+    consult its damped ``route_advice``, ``"model"`` the trained
+    lane-portfolio artifact (``lane_model``) first. All off by default and
+    neutral for solve results. `capacity` (ROADMAP A7) is not ported yet
+    and raises NotImplementedError."""
     import os
 
     from ..runtime.adaptive import _require_device
     from ..solvers.ipm import _reject_deferred
 
-    _reject_deferred(timeseries=timeseries, capacity=capacity, lanes=lanes,
-                     lane_policy=lane_policy, warm_model=warm_model,
-                     lane_model=lane_model)
+    _reject_deferred(capacity=capacity)
     if n_shards <= 0:
         raise ValueError(f"n_shards must be positive (got {n_shards})")
     _require_device(device)  # before any child is spawned
@@ -1115,6 +1236,7 @@ def make_dense_fleet(
             ),
             telemetry=telemetry,
             reqtrace=reqtrace,
+            warm_model=warm_model,
             conformance=conformance is not None and conformance is not False,
         )
         for i in range(n_shards)
@@ -1122,6 +1244,8 @@ def make_dense_fleet(
     cache = ResultCache(cache_size) if cache_size else None
     return FleetService(
         shards, queue_limit=queue_limit, tenants=tenants, cache=cache,
-        clock=clock, reqtrace=reqtrace, spawn=spawn, conformance=conformance,
-        canary=canary, device=device, **fleet_kw,
+        clock=clock, reqtrace=reqtrace, spawn=spawn, timeseries=timeseries,
+        conformance=conformance, canary=canary, lanes=lanes,
+        lane_policy=lane_policy, lane_model=lane_model, device=device,
+        **fleet_kw,
     )

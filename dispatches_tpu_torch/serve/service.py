@@ -27,10 +27,12 @@ process tracer's journal (`obs.journal.get_tracer()`), with service
 verdicts (``shed``, ``deadline_exceeded``) flowing into the same
 `solve_verdict_total` counters the solver health engine uses.
 
-The JAX package's time-series store, capacity plane and lane observatory
-(``store=``, ``capacity=``, ``lanes=``, ``timeseries=``, ``perf=``) come
-with ROADMAP A7, and learned warm starts (``warm_model=``) with A6: until
-then those options raise NotImplementedError.
+Learned warm starts (``warm_model=``), the time-series store
+(``timeseries=`` / ``store=``) and the lane observatory (``lanes=``) are
+opt-in planes that only read the solves: with them on, every answer is
+bitwise the one without them (a rejected warm seed is the cold start).
+The JAX package's capacity plane and performance probe (``capacity=``,
+``perf=``) come with ROADMAP A7 and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -105,9 +107,10 @@ class DispatchService:
         lanes=None,
         lane: str = "dense",
     ):
+        from ..obs.lanes import as_lanes
         from ..solvers.ipm import _reject_deferred
 
-        _reject_deferred(store=store, capacity=capacity, lanes=lanes)
+        _reject_deferred(capacity=capacity)
         self.engine = engine
         self.queue = AdmissionQueue(queue_limit)
         self.cache = cache
@@ -119,7 +122,18 @@ class DispatchService:
             # sharing the service clock; None keeps the hot path untouched
             engine.observer = obs_reqtrace.EngineJourneyObserver(clock)
         self.mem_sample_every = int(mem_sample_every)
+        # obs.timeseries.SeriesStore (None = retention off, the default):
+        # pump() calls maybe_sample on the service clock; the sampler only
+        # reads registry floats
+        self.store = store
+        # obs.lanes.LaneObservatory (None = off, the default): every
+        # resolved solve journals a lane_decision and may be sampled for a
+        # shadow-lane probe; tick() runs the budgeted probes from pump()
+        # after primary dispatch (batch priority)
+        self.lanes = as_lanes(lanes, clock=clock)
         self.lane = str(lane)
+        if self.lanes is not None:
+            self.lanes.seed_metrics(self.name, self.lane)
         self._pump_count = 0
         self._lock = threading.RLock()
         self._seq = 0
@@ -265,6 +279,12 @@ class DispatchService:
             obs_metrics.set_gauge(
                 "serve_active_lanes", len(self.engine.active())
             )
+            if self.store is not None:
+                self.store.maybe_sample(self.clock())
+            if self.lanes is not None:
+                # shadow-lane probes at batch priority: after every
+                # primary dispatch and harvest of this cycle
+                self.lanes.tick(self.clock())
         return done
 
     def drain(
@@ -425,7 +445,7 @@ class DispatchService:
             "serve_latency_seconds", latency, buckets=LATENCY_BUCKETS,
             status=status,
         )
-        extra = {}
+        extra = {k: stats[k] for k in ("warm_source", "warm_accepted") if k in stats}
         if rinfo is not None:
             extra["remediation"] = rinfo
         if conf is not None:
@@ -438,6 +458,13 @@ class DispatchService:
             **({"health": health} if health is not None else {}),
             **extra,
         )
+        if self.lanes is not None:
+            # the decision record's wall is the request's end-to-end
+            # latency; the shadow prober re-measures both lanes on one clock
+            self.lanes.note_solve(
+                req.problem, self.lane, entry=self.name, wall=latency,
+                iterations=stats.get("iterations"), verdict=verdict,
+            )
         if req.journey is not None:
             req.journey.finish(
                 "complete", verdict=verdict,
@@ -527,6 +554,15 @@ class DispatchService:
                 return {}
             return {"conformance": conf.report()}
 
+    def lane_report(self) -> dict:
+        """The exporter's ``/lanes`` payload for the in-process service:
+        the lane observatory's scoreboard ledger. Empty when the plane
+        is off."""
+        with self._lock:
+            if self.lanes is None:
+                return {}
+            return self.lanes.report()
+
     def stats(self) -> dict:
         with self._lock:
             out = {
@@ -545,6 +581,10 @@ class DispatchService:
             conf = getattr(self.engine, "conformance", None)
             if conf is not None:
                 out["conformance"] = conf.report()
+            if self.store is not None:
+                out["timeseries"] = self.store.stats()
+            if self.lanes is not None:
+                out["lanes"] = self.lanes.report()
             for status in ("ok", "cached"):
                 for q, tag in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
                     v = obs_metrics.histogram_quantile(
@@ -603,13 +643,24 @@ def make_dense_service(
     on solve events, and escalates policy failures to the `inaccurate`
     verdict.
 
-    `timeseries`, `perf`, `capacity` and `lanes` (ROADMAP A7) and
-    `warm_model` (A6) are not ported yet and raise NotImplementedError."""
+    `warm_model` (default None = the cold path) is a learned warm-start
+    artifact path / `WarmStartModel` / `WarmStartPredictor`; admitted
+    lanes are then seeded through the solver's safeguarded
+    ``warm_start=`` plumbing.
+
+    `timeseries=True` attaches an `obs.timeseries.SeriesStore` on the
+    service clock, sampled from `pump()`, so ``service.store.query(...)``
+    answers over history. `lanes` (True / `obs.lanes.LaneConfig` knobs
+    mapping / a `LaneObservatory`) journals a ``lane_decision`` per
+    resolved solve and runs budgeted shadow-lane probes from `pump()`.
+    Both only read; the answers are bitwise those without them.
+
+    `perf` and `capacity` (ROADMAP A7) are not ported yet and raise
+    NotImplementedError."""
     from ..runtime.adaptive import make_dense_engine
     from ..solvers.ipm import _reject_deferred
 
-    _reject_deferred(timeseries=timeseries, perf=perf, capacity=capacity,
-                     lanes=lanes, warm_model=warm_model)
+    _reject_deferred(perf=perf, capacity=capacity)
     remedy_engine = None
     if remedy is not None:
         from ..runtime.remedy import as_remedy
@@ -621,12 +672,18 @@ def make_dense_service(
         )
     engine = make_dense_engine(
         bucket, chunk_iters=chunk_iters, trace=trace, remedy=remedy_engine,
-        conformance=conformance, device=device, **solver_kw
+        warm_predictor=warm_model, conformance=conformance, device=device,
+        **solver_kw
     )
     if engine.conformance is not None:
         engine.conformance.seed_metrics("serve_dense")
     cache = ResultCache(cache_size) if cache_size else None
+    store = None
+    if timeseries:
+        from ..obs.timeseries import SeriesStore
+
+        store = SeriesStore(clock=clock)
     return DispatchService(
         engine, queue_limit=queue_limit, cache=cache, clock=clock,
-        reqtrace=reqtrace, lane="dense",
+        reqtrace=reqtrace, store=store, lanes=lanes, lane="dense",
     )

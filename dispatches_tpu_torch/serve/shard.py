@@ -61,7 +61,11 @@ receipt of the solve op), which the parent maps into the request's
 did the work. With ``--conformance 1`` the engine computes per-row KKT
 certificates at harvest (`obs.conformance`) and each result frame
 carries the four scalars + outcome, which the parent re-observes into
-its own registry and escalates on (docs/observability.md §12).
+its own registry and escalates on (docs/observability.md §12). With
+``--warm-model PATH`` the engine seeds every admitted lane from the
+learned warm-start artifact (`learn.WarmStartPredictor`, loaded on the
+child's device), and each result frame carries the lane's
+``warm_source`` / ``warm_accepted``.
 
 The ``fault`` op is the fault-injection surface `tests/test_torch_serve_fleet.py`,
 `chip_smoke.py` serve (d) and the loadgen chaos leg drive: ``exit`` dies
@@ -295,6 +299,9 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--conformance", type=int, default=0,
                     help="compute per-row KKT certificates at harvest "
                          "and ship them in result frames")
+    ap.add_argument("--warm-model", default=None,
+                    help="learned warm-start artifact (learn/) seeding "
+                         "the engine's admitted lanes")
     args = ap.parse_args(argv)
 
     if os.environ.get(DIE_ON_START_ENV) == "1":
@@ -358,6 +365,7 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     solver_kw = json.loads(args.solver_kw)
     engine = make_dense_engine(
         args.bucket, chunk_iters=args.chunk_iters,
+        warm_predictor=args.warm_model,
         conformance=bool(args.conformance) or None,
         device=os.environ.get(DEVICE_ENV, "cuda"), **solver_kw
     )
@@ -480,13 +488,16 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
                     if np.asarray(leaf).dtype.kind == "f" else leaf
                     for leaf in row
                 ))
+            warm_attrs = {
+                k: stats[k] for k in ("warm_source", "warm_accepted") if k in stats
+            }
             if tracer is not None:
                 # child-side health verdict with shard provenance; rides
                 # the next telemetry frame into the parent journal
                 tracer.solve_event(
                     "shard_engine", row, lane=lane,
                     iterations=stats.get("iterations"),
-                    shard=args.shard_id,
+                    shard=args.shard_id, **warm_attrs,
                 )
             frame = {
                 "op": "result",
@@ -494,6 +505,7 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
                 "slot": slot,
                 "iterations": stats.get("iterations"),
                 "row": encode_row(row),
+                **warm_attrs,
             }
             conf = stats.get("conformance")
             if conf is not None:
@@ -535,6 +547,7 @@ class ShardProcess:
         stderr_path: Optional[str] = None,
         telemetry: bool = False,
         reqtrace: bool = False,
+        warm_model: Optional[str] = None,
         conformance: bool = False,
     ):
         self.shard_id = int(shard_id)
@@ -546,6 +559,7 @@ class ShardProcess:
         self.stderr_path = stderr_path
         self.telemetry = bool(telemetry)
         self.reqtrace = bool(reqtrace)
+        self.warm_model = warm_model
         self.conformance = bool(conformance)
         self.proc: Optional[subprocess.Popen] = None
         self.lanes: Dict[Any, Any] = {}  # lane id -> SolveRequest
@@ -587,6 +601,8 @@ class ShardProcess:
             "--reqtrace", "1" if self.reqtrace else "0",
             "--conformance", "1" if self.conformance else "0",
         ]
+        if self.warm_model:
+            cmd += ["--warm-model", os.path.abspath(self.warm_model)]
         env = dict(os.environ)
         # the child must import dispatches_tpu_torch whatever the parent's cwd
         pkg_root = os.path.dirname(os.path.dirname(

@@ -98,11 +98,7 @@ def pin_matmul_precision() -> None:
 
 # options of the JAX package whose modules are not ported yet, and the
 # ROADMAP.md item that brings each
-_DEFERRED = {
-    "warm_predictor": "A6", "warm_model": "A6", "lane_model": "A6",
-    "perf": "A7", "lanes": "A7", "lane_policy": "A7", "timeseries": "A7",
-    "capacity": "A7", "store": "A7", "alert_rules": "A7", "slo_fn": "A7",
-}
+_DEFERRED = {"perf": "A7", "capacity": "A7", "cost": "A7"}
 
 
 def _reject_deferred(**kw) -> None:

@@ -40,6 +40,7 @@ from .ipm import (
     _solve_scaled,
     _squeeze_lane,
     _unsqueeze_lane,
+    _warm_safeguard,
     _warm_tensors,
     pin_matmul_precision,
 )
@@ -740,24 +741,14 @@ def _ruiz_banded(Ad, As, Bb, iters: int = 8):
     return r, ct, cbv
 
 
-def _solve_banded(
-    meta, blp, tol, max_iter, reg_p, reg_d, refine_steps, d_cap, slabs=None,
-    chol_dtype=None, kkt_refine=0, fac_d_cap=None, inv_factors=False,
-    sweep_backend="scan", correctors=0, trace=False, factor_dtype=None,
-    warm_start=None, state=None, it_stop=None, return_state=False,
-):
-    """The batched banded solve: every field of `blp` carries the batch
-    axis, and so do `warm_start` and `state` when given. Returns
-    (IPMSolution, SolveTrace), both batched, and the `IPMState` third with
-    `return_state`."""
+def _banded_scaling(blp):
+    """The banded solve's scaling prologue on a batched `blp`: Ruiz row,
+    time-column and border-column factors, the flat scaled b, c and
+    bounds, and the per-lane objective and bound scales ``sig_c``,
+    ``sig_b``."""
     Ad, As, Bb, b, c, cb, lt, ut, lb, ub, c0 = blp
-    B, Tb, mB, nB = Ad.shape
-    p = meta.p
-    nt = Tb * nB
+    B = Ad.shape[0]
     r, ct, cbv = _ruiz_banded(Ad, As, Bb)
-    Ad_s = Ad * r[..., :, None] * ct[..., None, :]
-    As_s = As * r[..., :, None] * _shift_down(ct, 1)[..., None, :]
-    Bb_s = Bb * r[..., :, None] * cbv[:, None, None, :]
     b_s = (b * r).reshape(B, -1)
     c_flat = torch.cat([(c * ct).reshape(B, -1), cb * cbv], dim=-1)
     cs_all = torch.cat([ct.reshape(B, -1), cbv], dim=-1)
@@ -773,6 +764,69 @@ def _solve_banded(
         ),
         min=1.0,
     )[:, None]
+    return r, ct, cbv, b_s, c_flat, cs_all, l_flat, u_flat, sig_c, sig_b
+
+
+def _banded_warm_scaled(meta, warm_start, r, cs_all, sig_c, sig_b):
+    """A solution-frame seed (reduced column order, banded row order) in
+    the flat scaled frame: scattered through col_pos, the inverse of the
+    solution's gather; padding slots get 0, which the safeguard clips
+    inside their inert [0, 1] box."""
+    B, Tb, mB = r.shape
+    col_pos = torch.as_tensor(meta.col_pos, device=r.device)
+    xw, yw, zlw, zuw = warm_start
+
+    def scatter(v):
+        out = torch.zeros(B, cs_all.shape[-1], dtype=r.dtype, device=r.device)
+        out[:, col_pos] = v
+        return out
+
+    return (
+        scatter(xw) / (cs_all * sig_b),
+        (yw.reshape(B, Tb, mB) / (r * sig_c[:, :, None])).reshape(B, -1),
+        scatter(zlw) * cs_all / sig_c,
+        scatter(zuw) * cs_all / sig_c,
+    )
+
+
+def banded_warm_accept(meta: TimeStructure, blp: BandedLP, warm_start):
+    """Would the banded solver's safeguard ACCEPT these solution-frame
+    seeds? Replays its scaling prologue and `ipm._warm_safeguard` on the
+    scaled bounds, without factorizing or iterating, and returns the flag
+    the solver itself computes: one a lane of a batched `blp` (leading
+    axis on the seed too), a 0-d flag for one LP."""
+    blpb, batch = _broadcast_batch(blp, _BASE_NDIM)
+    warm = _warm_tensors(warm_start, blp.b)
+    if batch is None:
+        blpb = BandedLP(*(a.unsqueeze(0) for a in blp))
+        warm = _unsqueeze_lane(warm)
+    r, _, _, _, _, cs_all, l_flat, u_flat, sig_c, sig_b = _banded_scaling(blpb)
+    l, u = l_flat / sig_b, u_flat / sig_b
+    fl, fu = torch.isfinite(l), torch.isfinite(u)
+    zero = torch.zeros((), dtype=l.dtype, device=l.device)
+    ok = _warm_safeguard(_banded_warm_scaled(meta, warm, r, cs_all, sig_c, sig_b),
+                         fl, fu, torch.where(fl, l, zero), torch.where(fu, u, zero))[-1]
+    return ok if batch is not None else ok[0]
+
+
+def _solve_banded(
+    meta, blp, tol, max_iter, reg_p, reg_d, refine_steps, d_cap, slabs=None,
+    chol_dtype=None, kkt_refine=0, fac_d_cap=None, inv_factors=False,
+    sweep_backend="scan", correctors=0, trace=False, factor_dtype=None,
+    warm_start=None, state=None, it_stop=None, return_state=False,
+):
+    """The batched banded solve: every field of `blp` carries the batch
+    axis, and so do `warm_start` and `state` when given. Returns
+    (IPMSolution, SolveTrace), both batched, and the `IPMState` third with
+    `return_state`."""
+    Ad, As, Bb, b, c, cb, lt, ut, lb, ub, c0 = blp
+    B, Tb, mB, nB = Ad.shape
+    p = meta.p
+    nt = Tb * nB
+    r, ct, cbv, b_s, c_flat, cs_all, l_flat, u_flat, sig_c, sig_b = _banded_scaling(blp)
+    Ad_s = Ad * r[..., :, None] * ct[..., None, :]
+    As_s = As * r[..., :, None] * _shift_down(ct, 1)[..., None, :]
+    Bb_s = Bb * r[..., :, None] * cbv[:, None, None, :]
 
     ops = _banded_ops(
         Ad_s, As_s, Bb_s, Tb, mB, nB, p, reg_d,
@@ -784,23 +838,7 @@ def _solve_banded(
     col_pos = torch.as_tensor(meta.col_pos, device=Ad.device)
     warm_s = None
     if warm_start is not None:
-        # solution-frame seed (reduced column order, banded row order) into
-        # the flat scaled frame: scatter through col_pos, the inverse of
-        # the gather below; padding slots get 0, which the safeguard clips
-        # inside their inert [0, 1] box
-        xw, yw, zlw, zuw = warm_start
-
-        def scatter(v):
-            out = torch.zeros(B, nt + p, dtype=Ad.dtype, device=Ad.device)
-            out[:, col_pos] = v
-            return out
-
-        warm_s = (
-            scatter(xw) / (cs_all * sig_b),
-            (yw.reshape(B, Tb, mB) / (r * sig_c[:, :, None])).reshape(B, -1),
-            scatter(zlw) * cs_all / sig_c,
-            scatter(zuw) * cs_all / sig_c,
-        )
+        warm_s = _banded_warm_scaled(meta, warm_start, r, cs_all, sig_c, sig_b)
     out = _solve_scaled(
         LPData(
             A=None, b=b_s / sig_b, c=c_flat / sig_c, l=l_flat / sig_b,

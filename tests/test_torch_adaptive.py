@@ -418,16 +418,104 @@ def test_cli_refusals_match_jax(tmp_path):
         TW.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", cost=True)
 
 
-@pytest.mark.parametrize("opt", ["perf", "lanes", "lane_policy",
-                                 "warm_predictor", "lane_model"])
+@pytest.mark.parametrize("opt", ["perf"])
 def test_unported_adaptive_options_are_refused(opt, band):
     lp = _tlp(_small(_HEALTHY, _HEALTHY))
     with pytest.raises(NotImplementedError, match=opt):
         TA.solve_lp_adaptive(lp, **{opt: object()})
-    if opt != "lane_model":  # the banded entry has no lane model
-        meta, blp = band[:2]
-        with pytest.raises(NotImplementedError, match=opt):
-            TA.solve_lp_banded_adaptive(meta, blp, **{opt: object()})
+    meta, blp = band[:2]
+    with pytest.raises(NotImplementedError, match=opt):
+        TA.solve_lp_banded_adaptive(meta, blp, **{opt: object()})
+
+
+@pytest.fixture(scope="module")
+def band_cold_adaptive(band):
+    meta, blp = band[:2]
+    return TA.solve_lp_banded_adaptive(meta, blp)
+
+
+def _lane_router(lp, prefer):
+    """A lane-route model trained on a few instances of `lp`'s family whose
+    pinned walls favour `prefer`."""
+    from dispatches_tpu_torch import learn as TL
+
+    rng = np.random.default_rng(0)
+    rows = [lp._replace(c=lp.c * float(rng.uniform(0.5, 1.5))) for _ in range(8)]
+    X = np.stack([TL.features_of(r) for r in rows])
+    fast, slow = np.full(8, 0.01), np.full(8, 1.0)
+    walls = (slow, fast) if prefer == "pdhg" else (fast, slow)
+    Y = np.c_[walls[0], walls[1], np.full(8, 9.0), np.full(8, 300.0), np.zeros(8)]
+    ds = TL.WarmStartDataset(
+        X, Y, family=TL.family_fingerprint(lp), varying=("b", "c"),
+        targets=[("wall_dense", 1), ("wall_pdhg", 1), ("iters_dense", 1),
+                 ("iters_pdhg", 1), ("chosen", 1)], problem_type="LPData")
+    model, _ = TL.train_laneroute_model(ds, hidden=(4, 4), epochs=40, device="cpu")
+    return TL.LaneRouter([model])
+
+
+@pytest.mark.parametrize("opt", ["lanes", "lane_policy", "warm_predictor", "lane_model"])
+def test_adaptive_live_options(opt, band, band_cold_adaptive):
+    """The options the refusals above used to name, live: the observatory
+    and the static / advice policies leave the answers bitwise as they are
+    (the banded lane never re-lanes), advice and a lane model re-lane an
+    unbatched dense solve onto PDHG, and a rejected learned seed is the
+    banded cold path bitwise while a trained one converges to the cold
+    answer."""
+    from dispatches_tpu_torch import learn as TL
+    from dispatches_tpu_torch.obs.lanes import as_lanes
+
+    meta, blp = band[:2]
+    lp = _tlp(_small(_HEALTHY, _HEALTHY))
+    one = _tlp(_small(_HEALTHY))
+    if opt == "lanes":
+        obs = as_lanes({"probe_fraction": 0.0})
+        _assert_bitwise(TA.solve_lp_adaptive(lp), TA.solve_lp_adaptive(lp, lanes=obs))
+        _assert_bitwise(band_cold_adaptive, TA.solve_lp_banded_adaptive(meta, blp, lanes=obs))
+        assert obs.report()["decisions"] == 2 + blp.c.shape[0]
+    elif opt == "lane_policy":
+        obs = as_lanes(True)
+        obs.force_advice(TL.family_fingerprint(one), "pdhg")
+        stats = {}
+        sol = TA.solve_lp_adaptive(one, lanes=obs, lane_policy="advice", stats=stats)
+        assert stats["relaned"] == "pdhg" and bool(sol.converged)
+        assert abs(float(sol.obj) - float(TA.solve_lp_adaptive(one).obj)) < 1e-5
+        _assert_bitwise(TA.solve_lp_adaptive(one),
+                        TA.solve_lp_adaptive(one, lanes=obs, lane_policy="static"))
+        _assert_bitwise(band_cold_adaptive, TA.solve_lp_banded_adaptive(
+            meta, blp, lanes=obs, lane_policy="advice"))
+        with pytest.raises(ValueError, match="lane_policy"):
+            TA.solve_lp_adaptive(one, lane_policy="fastest")
+    elif opt == "warm_predictor":
+        cold = band_cold_adaptive
+        ds = TL.WarmStartDataset(
+            np.stack([TL.features_of(TS.BandedLP(*(a[k] if a.dim() > d else a
+                                                   for a, d in zip(blp, TS._BASE_NDIM.values()))))
+                      for k in range(blp.c.shape[0])]),
+            np.concatenate([getattr(cold, f).numpy() for f in WARM], axis=1),
+            family=TL.family_fingerprints(blp, TA._batch_axes(TS.BandedLP, TS._BASE_NDIM, blp)[0],
+                                          blp.c.shape[0])[0],
+            varying=("b", "c"), problem_type="BandedLP",
+            targets=[(f, getattr(cold, f).shape[1]) for f in WARM])
+        model, _ = TL.train_warmstart_model(ds, hidden=(8, 8), epochs=300, device="cpu",
+                                            holdout_frac=0.0)
+        warm = TA.solve_lp_banded_adaptive(meta, blp, warm_predictor=model)
+        assert bool(warm.converged.all())
+        # both ends within the IPM's tolerance of one optimum (5.7e-7 here)
+        np.testing.assert_allclose(warm.obj.numpy(), cold.obj.numpy(), rtol=2e-6)
+        nan = TL.WarmStartModel(model.surrogate, model.manifest)
+        nan.predict_parts = lambda X: {f: np.full((X.shape[0], d), np.nan)
+                                       for f, d in model.targets}
+        _assert_bitwise(cold, TA.solve_lp_banded_adaptive(meta, blp, warm_predictor=nan))
+    else:
+        stats = {}
+        sol = TA.solve_lp_adaptive(one, lane_policy="model",
+                                   lane_model=_lane_router(one, "pdhg"), stats=stats)
+        assert stats["relaned"] == "pdhg" and stats["lane_prediction"]["lane"] == "pdhg"
+        assert bool(sol.converged)
+        stats = {}
+        _assert_bitwise(TA.solve_lp_adaptive(one), TA.solve_lp_adaptive(
+            one, lane_policy="model", lane_model=_lane_router(one, "dense"), stats=stats))
+        assert "relaned" not in stats and stats["lane_prediction"]["lane"] == "dense"
 
 
 def test_ladder_helpers_match_jax():
@@ -438,3 +526,46 @@ def test_ladder_helpers_match_jax():
             assert TA.next_bucket(n, ladder) == JA.next_bucket(n, ladder)
     with pytest.raises(ValueError):
         TA.bucket_ladder(0)
+
+
+def test_banded_warm_verdicts_are_the_solvers(band, band_cold_adaptive):
+    """`structured.banded_warm_accept` is the banded solver's own safeguard
+    verdict: a lane whose seed it rejects (non-finite, or clipped far into
+    its box) solves bitwise as the cold lane, one it accepts does not; and
+    `WarmStartPredictor.seed_batch(meta=)` counts that verdict."""
+    from dispatches_tpu_torch import learn as TL
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
+
+    meta, blp = band[:2]
+    cold = band_cold_adaptive
+    B = blp.c.shape[0]
+    seed = [getattr(cold, f).clone() for f in WARM]
+    seed[0][0, 0] = float("nan")
+    seed[0][1] = -1e12 * (1.0 + seed[0][1].abs())
+    ok = TS.banded_warm_accept(meta, blp, tuple(seed))
+    assert ok.tolist() == [False, False] + [True] * (B - 2)
+    plain = TS.solve_lp_banded_batch(meta, blp)
+    warm = TS.solve_lp_banded_batch(meta, blp, warm_start=tuple(seed))
+    for k in range(B):
+        same = all(_same(a[k], b[k]) for a, b in zip(plain, warm))
+        assert same == (not ok[k]), k
+    # a predictor that returns the cold answers: every seed accepted
+    axes = TA._batch_axes(TS.BandedLP, TS._BASE_NDIM, blp)[0]
+    ds = TL.WarmStartDataset(
+        np.stack(TL.features_batch(blp, axes, B)),
+        np.concatenate([getattr(cold, f).numpy() for f in WARM], axis=1),
+        family=TL.family_fingerprints(blp, axes, B)[0], varying=("b", "c"),
+        problem_type="BandedLP", targets=[(f, getattr(cold, f).shape[1]) for f in WARM])
+    model, _ = TL.train_warmstart_model(ds, hidden=(2,), epochs=1, device="cpu",
+                                        holdout_frac=0.0)
+    model.predict_parts = lambda X: {f: getattr(cold, f).numpy() for f in WARM}
+    pred = TL.WarmStartPredictor(model, device="cpu")
+    assert pred.seed_batch(blp, axes, B) == (None, None)  # no meta: no banded seeds
+    before = obs_metrics.flat_values()
+    seeds, acc = pred.seed_batch(blp, axes, B, entry="test", meta=meta)
+    after = obs_metrics.flat_values()
+    want = TS.banded_warm_accept(meta, blp, tuple(
+        torch.as_tensor(np.stack([s[j] for s in seeds])) for j in range(4)))
+    assert acc == want.tolist() == [True] * B
+    assert sum(after.get(k, 0.0) - before.get(k, 0.0) for k in after
+               if k.startswith("learned_warm_accept_total")) == B

@@ -259,8 +259,8 @@ def test_coercions_and_escalation_match_jax():
     for verdict in ("healthy", "slow", "cycling", "stalled", "nonfinite", "unrecoverable"):
         for conf in (None, {"ok": True}, {"ok": False}):
             assert TC.escalate_verdict(verdict, conf) == JC.escalate_verdict(verdict, conf)
-    with pytest.raises(NotImplementedError, match="obs/alerts"):
-        TC.default_conformance_rules()
+    assert [r.to_dict() for r in TC.default_conformance_rules()] == \
+        [r.to_dict() for r in JC.default_conformance_rules()]
 
 
 def test_gauges_and_histograms_match_jax():

@@ -188,9 +188,34 @@ def test_secure_dispatch_matches_jax():
     assert vals["contingency_escaped_violations_total"] == 0
 
 
-def test_screener_is_refused_until_a6(grid12):
-    _, gp = grid12
-    cset = C.ContingencySet.n_minus_1(gp, gens=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        C.secure_dispatch(gp, C.base_operating_point(gp), cset, screener=object(),
-                          device="cpu", **KW)
+def test_screened_secure_dispatch_as_jax(grid12):
+    """`secure_dispatch(screener=)` (refused until the screener was ported):
+    the same recording screener's mask gives the JAX package's rounds,
+    screened / fallback flags, evaluated set and objective."""
+    gj, gp = grid12
+    out = []
+    for net, g in ((JC, gj), (C, gp)):
+        cset = net.ContingencySet.n_minus_1(g, gens=False)
+        nb = len(cset.branch_indices())
+        mask = np.zeros(nb, bool)
+        mask[::3] = True
+
+        class Screen:
+            caught = accepts = 0
+
+            def screen(self, problem, cs):
+                return mask
+
+            def note_accept(self):
+                Screen.accepts += 1
+
+            def note_violation_fallback(self, n=1):
+                Screen.caught += n
+
+        kw = dict(KW, device="cpu") if net is C else KW
+        sd = net.secure_dispatch(g, net.base_operating_point(g, 3), cset, screener=Screen(), **kw)
+        out.append((sd.rounds, sd.screened, sd.screen_fallback, sd.evaluated, sd.feasible,
+                    sd.escaped_violations, Screen.accepts, Screen.caught, float(sd.sol.obj)))
+    (*jrest, jobj), (*trest, tobj) = out
+    assert trest == jrest and trest[1]
+    assert abs(tobj - jobj) <= 1e-7 * max(1.0, abs(jobj))

@@ -343,12 +343,64 @@ def test_pdhg_adaptive_conformance_is_neutral():
 
 def test_pdhg_adaptive_refusals():
     lp = _tlp(_mk_batch((0, 1)))
-    for opt in ("perf", "lanes", "lane_policy", "warm_predictor", "lane_model"):
-        with pytest.raises(NotImplementedError, match=opt):
-            TA.solve_lp_pdhg_adaptive(lp, **{opt: object()})
+    with pytest.raises(NotImplementedError, match="perf"):
+        TA.solve_lp_pdhg_adaptive(lp, perf=object())
     bad = lp._replace(rows=lp.rows.expand(2, -1))
     with pytest.raises(ValueError, match="shared sparsity pattern"):
         TA.solve_lp_pdhg_adaptive(bad)
+
+
+@pytest.mark.parametrize("opt", ["lanes", "lane_policy", "warm_predictor", "lane_model"])
+def test_pdhg_adaptive_live_options(opt):
+    """The options the refusal test used to name, live on the PDHG entry:
+    the observatory, a static policy and a rejected (NaN) learned seed leave
+    the lanes bitwise as they are; advice and a lane model re-lane an
+    unbatched solve onto the dense IPM."""
+    from dispatches_tpu_torch import learn as TL
+    from dispatches_tpu_torch.obs.lanes import as_lanes
+
+    kw = dict(tol=1e-6, max_iter=4000)
+    lp = _tlp(_mk_batch((0, 1)))
+    one = SparseLP(*(a[0] if k in (2, 3, 4, 7) else a for k, a in enumerate(lp)))
+    cold = TA.solve_lp_pdhg_adaptive(lp, **kw)
+    if opt == "lanes":
+        obs = as_lanes({"probe_fraction": 0.0})
+        _assert_bitwise(cold, TA.solve_lp_pdhg_adaptive(lp, lanes=obs, **kw))
+        assert obs.report()["decisions"] == 2
+    elif opt == "lane_policy":
+        obs = as_lanes(True)
+        _assert_bitwise(cold, TA.solve_lp_pdhg_adaptive(lp, lanes=obs, lane_policy="advice", **kw))
+        obs.force_advice(TL.family_fingerprint(one), "dense")
+        stats = {}
+        sol = TA.solve_lp_pdhg_adaptive(one, lanes=obs, lane_policy="advice", stats=stats, **kw)
+        assert stats["relaned"] == "dense" and bool(sol.converged)
+        assert abs(float(sol.obj) - float(cold.obj[0])) < 1e-4 * max(1.0, abs(float(sol.obj)))
+    elif opt == "warm_predictor":
+        fam = TL.family_fingerprint(one)
+        n, m = one.c.shape[-1], one.b.shape[-1]
+        X = np.stack([TL.features_of(SparseLP(*(a[k] if k2 in (2, 3, 4, 7) else a
+                                                 for k2, a in enumerate(lp))))
+                      for k in range(2)])
+        ds = TL.WarmStartDataset(X, np.zeros((2, n + m)), family=fam, varying=("b", "c"),
+                                 targets=[("x", n), ("y", m)], problem_type="SparseLP")
+        model, _ = TL.train_warmstart_model(ds, hidden=(4,), epochs=2, device="cpu",
+                                            holdout_frac=0.0)
+        model.predict_parts = lambda X: {p: np.full((X.shape[0], d), np.nan)
+                                         for p, d in model.targets}
+        _assert_bitwise(cold, TA.solve_lp_pdhg_adaptive(lp, warm_predictor=model, **kw))
+    else:
+        X = np.stack([TL.features_of(one)] * 4)
+        Y = np.c_[np.full(4, 0.01), np.full(4, 1.0), np.full(4, 9.0), np.full(4, 900.0),
+                  np.ones(4)]
+        ds = TL.WarmStartDataset(X, Y, family=TL.family_fingerprint(one), varying=("b", "c"),
+                                 targets=[("wall_dense", 1), ("wall_pdhg", 1), ("iters_dense", 1),
+                                          ("iters_pdhg", 1), ("chosen", 1)],
+                                 problem_type="SparseLP")
+        model, _ = TL.train_laneroute_model(ds, hidden=(4,), epochs=20, device="cpu")
+        stats = {}
+        sol = TA.solve_lp_pdhg_adaptive(one, lane_policy="model",
+                                        lane_model=TL.LaneRouter([model]), stats=stats, **kw)
+        assert stats["relaned"] == "dense" and bool(sol.converged)
 
 
 # ---------------------------------------------------------------------

@@ -166,10 +166,17 @@ def test_exporter_serves_a_local_socket():
         assert e.value.code == 503 and json.loads(e.value.read())["shards"]
         assert "worst_burn_rate" in json.loads(ex.handle_path("/slo")[2])
         assert ex.handle_path("/snapshot")[0] == 200
-        assert ex.handle_path("/query?name=x")[0] == 501  # ROADMAP A7
+        assert ex.handle_path("/query?name=x")[0] == 404  # no store attached
         assert ex.handle_path("/conformance")[0] == 404
+    from dispatches_tpu_torch.obs.timeseries import SeriesStore
+
+    store = SeriesStore(reg, clock=lambda: 0.0)
+    store.sample(0.0)
+    ex = TelemetryExporter(0, registry=reg, store=store)
+    status, _, body = ex.handle_path("/query?name=serve_queue_depth&window=10")
+    assert status == 200 and json.loads(body)["series"][0]["v"] == [3.0]
     with pytest.raises(NotImplementedError, match="A7"):
-        TelemetryExporter(0, store=object())
+        TelemetryExporter(0, capacity_fn=dict)
 
 
 def test_service_journeys_in_the_journal(tmp_path, capsys):

@@ -268,47 +268,172 @@ def test_queue_and_router_decide_as_jax():
 # refused options, and no CPU unless asked
 
 
-@pytest.mark.parametrize("kw, item", [
-    ({"timeseries": True}, "A7"), ({"perf": True}, "A7"), ({"capacity": True}, "A7"),
-    ({"lanes": True}, "A7"), ({"warm_model": "warm.npz"}, "A6"),
-])
+@pytest.mark.parametrize("kw, item", [({"perf": True}, "A7"), ({"capacity": True}, "A7")])
 def test_service_refuses_unported_options(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         make_dense_service(2, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw, item", [
-    ({"timeseries": True}, "A7"), ({"capacity": True}, "A7"), ({"lanes": True}, "A7"),
-    ({"lane_policy": "advice"}, "A7"), ({"warm_model": "warm.npz"}, "A6"),
-    ({"lane_model": "route.npz"}, "A6"),
-])
+@pytest.mark.parametrize("kw, item", [({"capacity": True}, "A7")])
 def test_fleet_refuses_unported_options(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         make_dense_fleet(1, 2, device="cpu", spawn=False, **kw)
 
 
+def _fam(seed, n=8, m=4):
+    """One LP family (the loadgen draws a new A per request): a fixed A and
+    bounds, per-seed feasible b and objective c, host arrays."""
+    A = np.random.default_rng(7).standard_normal((m, n))
+    r = np.random.default_rng(seed)
+    return LPData(A, A @ r.uniform(0.5, 3.5, n), r.standard_normal(n), np.zeros(n),
+                  np.full(n, 4.0), np.float64(0.0))
+
+
+@pytest.fixture(scope="module")
+def warm_artifact(tmp_path_factory):
+    """A small warm-start artifact over `_fam`'s LP family."""
+    from dispatches_tpu_torch.learn import DatasetWriter, load_dataset, train_warmstart_model
+    from dispatches_tpu_torch.solvers.ipm import solve_lp
+
+    tmp = tmp_path_factory.mktemp("warm")
+    w = DatasetWriter(str(tmp / "ds"))
+    for s in range(16):
+        p = LPData(*(torch.as_tensor(a) for a in _fam(s)))
+        sol = solve_lp(p)
+        w.add(p, sol, iterations=int(sol.iterations))
+    w.close()
+    model, _ = train_warmstart_model(load_dataset([str(tmp / "ds")]), hidden=(8, 8),
+                                     epochs=100, device="cpu")
+    return model.save(str(tmp / "warm.npz"))
+
+
+def _serve(svc, rows):
+    tickets = [svc.submit(r) for r in rows]
+    svc.drain()
+    return [t.result(0) for t in tickets]
+
+
+@pytest.mark.parametrize("opt", ["timeseries", "lanes", "warm_model"])
+def test_service_live_options(opt, warm_artifact):
+    """The options the refusals above used to name, live: the store and the
+    observatory only read (answers bitwise as without them); a learned seed
+    lands on the cold answer within the IPM's tolerance."""
+    rows = [_fam(100 + s) for s in range(6)]
+    cold = _serve(make_dense_service(4, cache_size=None, device="cpu"), rows)
+    kw = {"timeseries": {"timeseries": True}, "lanes": {"lanes": {"probe_fraction": 1.0}},
+          "warm_model": {"warm_model": warm_artifact}}[opt]
+    svc = make_dense_service(4, cache_size=None, device="cpu", **kw)
+    got = _serve(svc, rows)
+    assert all(r.verdict == "healthy" for r in got)
+    for a, b in zip(cold, got):
+        if opt == "warm_model":
+            assert np.max(np.abs(np.asarray(a.solution.x) - np.asarray(b.solution.x))) < 1e-6
+            assert b.from_cache is False
+        else:
+            assert all(_biteq(x, y) for x, y in zip(a.solution, b.solution))
+    st = svc.stats()
+    if opt == "timeseries":
+        assert st["timeseries"]["series"] > 0
+        assert svc.store.query("serve_requests_total", window=60.0)
+    elif opt == "lanes":
+        assert st["lanes"]["decisions"] == len(rows) and st["lanes"]["probes_run"] > 0
+        assert svc.lane_report()["scoreboard"]
+
+
+@pytest.mark.parametrize("opt", ["timeseries", "lanes", "lane_policy", "warm_model",
+                                 "lane_model"])
+def test_fleet_live_options(opt, warm_artifact, tmp_path):
+    """The fleet's options, wired without spawning a child: the store and
+    its alert packs, the observatory, the router's advice source, the
+    children's warm model and the lane router."""
+    from dispatches_tpu_torch.learn import LaneRouter
+
+    kw = {"timeseries": {"timeseries": True, "conformance": True},
+          "lanes": {"lanes": True, "timeseries": True},
+          "lane_policy": {"lanes": True, "lane_policy": "advice"},
+          "warm_model": {"warm_model": warm_artifact},
+          "lane_model": {"lane_policy": "model", "lane_model": LaneRouter()}}[opt]
+    fleet = make_dense_fleet(1, 2, device="cpu", spawn=False, **kw)
+    if opt == "timeseries":
+        names = {r.name for r in fleet.alerts.rules}
+        assert "accuracy_burn" in names and "shard_down" in names
+        fleet.pump()
+        assert fleet.stats()["timeseries"]["series"] > 0
+    elif opt == "lanes":
+        assert "lane_regret_burn" in {r.name for r in fleet.alerts.rules}
+        assert fleet.lane_report()["decisions"] == 0
+    elif opt == "lane_policy":
+        assert fleet.router.advice_fn == fleet.lanes.advice
+        with pytest.raises(ValueError, match="lane_policy"):
+            make_dense_fleet(1, 2, device="cpu", spawn=False, lane_policy="fastest")
+    elif opt == "warm_model":
+        assert fleet._slots[0].shard.warm_model == warm_artifact
+    else:
+        assert fleet.router.advice_fn == fleet.lane_model.advice
+        assert fleet.lane_model.advice("0" * 64) is None
+
+
 def test_refusals_elsewhere_and_no_silent_cpu():
     from dispatches_tpu_torch.serve import DispatchService
-    from tools import torch_loadgen, torch_serve_dispatch
+    from tools import torch_loadgen
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_dense_engine(2, device="cpu", warm_predictor="warm.npz")
     eng = make_dense_engine(2, device="cpu")
-    for kw in ({"store": object()}, {"capacity": object()}, {"lanes": object()}):
-        with pytest.raises(NotImplementedError, match="A7"):
-            DispatchService(eng, **kw)
-    for argv in (["--ramp", "1:2:3"], ["--capacity"], ["--warm-model", "w.npz"]):
+    with pytest.raises(NotImplementedError, match="A7"):
+        DispatchService(eng, capacity=object())
+    for argv in (["--ramp", "1:2:3"], ["--capacity"]):
         with pytest.raises(NotImplementedError):
             torch_loadgen.main(argv)
-    for argv in (["--timeseries"], ["--lanes"], ["--warm-model", "w.npz"]):
-        with pytest.raises(NotImplementedError):
-            torch_serve_dispatch.main(argv)
     if not torch.cuda.is_available():
         # the entry points default to the card and never fall back
         with pytest.raises(RuntimeError, match="CUDA"):
             make_dense_service(2)
         with pytest.raises(RuntimeError, match="CUDA"):
             make_dense_fleet(1, 2)
+
+
+@pytest.mark.parametrize("where", ["engine", "service_store", "service_lanes", "cli"])
+def test_live_options_elsewhere(where, warm_artifact, tmp_path):
+    """The refusals `test_refusals_elsewhere_and_no_silent_cpu` used to
+    hold, live: the engine's learned seeds, `DispatchService(store=,
+    lanes=)`, and the request loop's ``--warm-model`` / ``--timeseries`` /
+    ``--lanes``."""
+    import io
+    import json
+
+    from dispatches_tpu_torch.obs.timeseries import SeriesStore
+    from dispatches_tpu_torch.serve import DispatchService
+
+    rows = {k: LPData(*(torch.as_tensor(a) for a in _fam(200 + k))) for k in range(3)}
+    if where == "engine":
+        out = _drive(make_dense_engine(2, device="cpu", warm_predictor=warm_artifact), rows)
+        assert all(st["warm_source"] == "learned" for _, st in out.values())
+        assert any(st["warm_accepted"] for _, st in out.values())
+    elif where in ("service_store", "service_lanes"):
+        kw = ({"store": SeriesStore()} if where == "service_store"
+              else {"lanes": {"probe_fraction": 0.0}})
+        svc = DispatchService(make_dense_engine(2, device="cpu"), **kw)
+        got = _serve(svc, list(rows.values()))
+        assert all(r.verdict == "healthy" for r in got)
+        if where == "service_store":
+            assert svc.stats()["timeseries"]["series"] > 0
+        else:
+            assert svc.lane_report()["decisions"] == 3
+    else:
+        from tools import torch_serve_dispatch
+
+        req = {"op": "solve", "id": "r0",
+               "problem": {k: np.asarray(v).tolist()
+                           for k, v in zip(LPData._fields, _fam(300))}}
+        path = tmp_path / "req.jsonl"
+        path.write_text(json.dumps(req) + "\n" + json.dumps({"op": "stats"}) + "\n")
+        buf = io.StringIO()
+        rc = torch_serve_dispatch.main(["--input", str(path), "--device", "cpu",
+                                        "--warm-model", warm_artifact, "--timeseries",
+                                        "--lanes"], out=buf)
+        lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+        assert rc == 0 and any(r.get("verdict") == "healthy" for r in lines)
+        st = next(r["stats"] for r in lines if "stats" in r)
+        assert "timeseries" in st and "lanes" in st
 
 
 # ---------------------------------------------------------------------

@@ -33,9 +33,11 @@ service does; a ``nan``-faulted shard's rows are re-solved healthy by
 the parent's remediation ladder, and a request that kills every worker
 it reaches is quarantined as ``poisoned``. Exit 2 on an error.
 
-The JAX tool's ``--ramp`` / ``--capacity`` (ROADMAP A7) and
-``--warm-model`` (A6) and their self-check legs wait for their modules:
-the options raise NotImplementedError.
+``--warm-model PATH`` serves through the learned warm start (an artifact
+from tools/torch_train_warmstart.py); the report then carries the
+accept / iterations-saved counter deltas. The JAX tool's ``--ramp`` /
+``--capacity`` (ROADMAP A7) and their self-check legs wait for the
+capacity plane: the options raise NotImplementedError.
 
 The workload is synthetic: small random feasible box LPs with a duplicate
 fraction (``--dup-frac``), so the fingerprint cache sees repeats.
@@ -193,6 +195,7 @@ def run_service(
     telemetry: bool = False,
     exporter_port=None,
     device="cuda",
+    warm_model=None,
 ) -> dict:
     """Drive the service (or, with `shards` > 0, the fleet) on `device` at
     `rate` req/s; returns the report dict. `reqtrace` records per-request
@@ -201,19 +204,25 @@ def run_service(
     busiest shard halfway through the submissions; `telemetry` (fleet
     only) ships shard-child registry deltas into the parent registry;
     `exporter_port` serves /metrics, /healthz and /slo from this process
-    for the run (0 = ephemeral)."""
+    for the run (0 = ephemeral). `warm_model` (an artifact path) seeds the
+    admitted lanes through the safeguarded learned warm start; the report
+    then carries the accept / iterations-saved counter deltas (a fleet's
+    need `telemetry` to fold the children's registries in)."""
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
     from dispatches_tpu_torch.serve import make_dense_fleet, make_dense_service
 
+    warm_before = obs_metrics.flat_values() if warm_model is not None else None
     if shards > 0:
         svc = make_dense_fleet(
             shards, bucket, chunk_iters=chunk_iters, queue_limit=queue_limit,
             reqtrace=reqtrace, telemetry=telemetry,
-            solver_kw={"max_iter": max_iter}, device=device,
+            solver_kw={"max_iter": max_iter}, device=device, warm_model=warm_model,
         )
     else:
         svc = make_dense_service(
             bucket, chunk_iters=chunk_iters, max_iter=max_iter,
             queue_limit=queue_limit, reqtrace=reqtrace, device=device,
+            warm_model=warm_model,
         )
     seeds = problem_seeds(requests, dup_frac, seed)
     problems = {s: make_problem(s, n=lp_n, m=lp_m) for s in set(seeds)}
@@ -257,6 +266,19 @@ def run_service(
         report["per_shard"] = {
             k: {**v, "goodput_rps": v.get("completed", 0) / wall if wall > 0 else 0.0}
             for k, v in (report["service"].get("per_shard") or {}).items()
+        }
+    if warm_before is not None:
+        after = obs_metrics.flat_values()
+
+        def _delta(prefix, extra=""):
+            return sum(after.get(k, 0.0) - warm_before.get(k, 0.0)
+                       for k in after if k.startswith(prefix) and extra in k)
+
+        report["warm"] = {
+            "model": str(warm_model),
+            "accepted": _delta("learned_warm_accept_total"),
+            "rejected": _delta("learned_warm_reject_total"),
+            "iters_saved": _delta("warm_start_iters_saved_total", 'source="learned"'),
         }
     if exporter is not None:
         report["exporter_url"] = exporter.url()
@@ -789,7 +811,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ramp", default=None, metavar="LO:HI:STEPS",
                     help="not ported yet (ROADMAP A7)")
     ap.add_argument("--capacity", action="store_true", help="not ported yet (ROADMAP A7)")
-    ap.add_argument("--warm-model", default=None, help="not ported yet (ROADMAP A6)")
+    ap.add_argument("--warm-model", default=None,
+                    help="learned warm-start artifact (.npz) seeding the admitted lanes")
     ap.add_argument("--baseline", choices=["serial"], default=None,
                     help="run the one-at-a-time baseline instead")
     ap.add_argument("--json", action="store_true", help="emit the raw report dict only")
@@ -806,8 +829,6 @@ def main(argv=None) -> int:
 
     if args.ramp is not None or args.capacity:
         raise NotImplementedError("--ramp / --capacity are not ported yet (ROADMAP A7)")
-    if args.warm_model is not None:
-        raise NotImplementedError("--warm-model is not ported yet (ROADMAP A6)")
     if args.self_check:
         return self_check(device=args.device)
     if args.kill_shard and args.shards < 2:
@@ -834,6 +855,7 @@ def main(argv=None) -> int:
                 telemetry=args.telemetry or (args.shards > 0
                                              and args.exporter_port is not None),
                 exporter_port=args.exporter_port, device=args.device,
+                warm_model=args.warm_model,
             )
         finally:
             if tracer is not None:

@@ -51,9 +51,14 @@ rates) and ``/snapshot`` (see docs/serving.md). In ``--shards`` mode it
 implies ``--telemetry``, so the scrape carries ``shard``-labeled series
 merged from every child next to the fleet aggregates.
 
-The JAX tool's ``--timeseries``, ``--lanes`` and ``--lane-policy``
-(ROADMAP A7) and ``--warm-model`` (A6) wait for their modules: they raise
-NotImplementedError.
+``--warm-model warm.npz`` seeds freshly admitted lanes from a learned
+warm-start artifact (tools/torch_train_warmstart.py, or the JAX package's
+tools/train_warmstart.py) through the solver's clip + per-lane rejection
+safeguard: a bad prediction degrades to the cold path, never to a wrong
+answer. ``--timeseries`` retains sampled metrics history and runs the
+fleet alert pack (``/query``, ``/alerts``); ``--lanes`` attaches the lane
+observatory (``/lanes``), and ``--lane-policy advice`` (``--shards``
+mode) lets the router consult its damped route advice.
 """
 from __future__ import annotations
 
@@ -172,13 +177,16 @@ def main(argv=None, out=sys.stdout) -> int:
                     help="--shards mode: children ship metrics-registry "
                     "and journal deltas into the parent on the heartbeat")
     ap.add_argument("--timeseries", action="store_true",
-                    help="not ported yet (ROADMAP A7)")
+                    help="retain sampled metrics history and run the "
+                    "fleet alert pack (obs.timeseries / obs.alerts); "
+                    "adds /query and /alerts to the exporter")
     ap.add_argument("--exporter-port", type=int, default=None,
                     help="serve /metrics /healthz /slo /snapshot on this "
                     "port (0 = ephemeral, printed to stderr; implies "
                     "--telemetry when --shards > 0)")
     ap.add_argument("--warm-model", default=None,
-                    help="not ported yet (ROADMAP A6)")
+                    help="learned warm-start artifact (.npz); seeds fresh "
+                    "lanes through the solver safeguard")
     ap.add_argument("--conformance", action="store_true",
                     help="compute per-solve KKT certificates at harvest, "
                     "escalate failures to the `inaccurate` verdict, and "
@@ -188,16 +196,14 @@ def main(argv=None, out=sys.stdout) -> int:
                     "artifact, either package's format) injected through "
                     "the full router->shard path on a cadence")
     ap.add_argument("--lanes", action="store_true",
-                    help="not ported yet (ROADMAP A7)")
+                    help="attach the lane observatory: journal every "
+                    "routing decision, shadow-probe a sampled fraction on "
+                    "the alternate IPM<->PDHG lane, and serve the "
+                    "per-family scoreboards at the exporter's /lanes")
     ap.add_argument("--lane-policy", default=None, choices=["advice"],
-                    help="not ported yet (ROADMAP A7)")
+                    help="--shards mode, with --lanes: let the router "
+                    "consult the observatory's damped route_advice")
     args = ap.parse_args(argv)
-    if args.timeseries or args.lanes or args.lane_policy:
-        raise NotImplementedError(
-            "--timeseries / --lanes / --lane-policy are not ported yet (ROADMAP A7)"
-        )
-    if args.warm_model is not None:
-        raise NotImplementedError("--warm-model is not ported yet (ROADMAP A6)")
 
     from dispatches_tpu_torch.obs.journal import Tracer, set_tracer
     from dispatches_tpu_torch.serve import make_dense_fleet, make_dense_service
@@ -251,6 +257,10 @@ def main(argv=None, out=sys.stdout) -> int:
                                 ),
                                 conformance=args.conformance or None,
                                 canary=args.canary,
+                                warm_model=args.warm_model,
+                                timeseries=args.timeseries,
+                                lanes=args.lanes or None,
+                                lane_policy=args.lane_policy,
                                 solver_kw={"max_iter": args.max_iter},
                                 device=args.device,
                             )
@@ -262,15 +272,23 @@ def main(argv=None, out=sys.stdout) -> int:
                                 cache_size=args.cache_size or None,
                                 reqtrace=args.reqtrace,
                                 conformance=args.conformance or None,
+                                warm_model=args.warm_model,
+                                timeseries=args.timeseries,
+                                lanes=args.lanes or None,
                                 device=args.device,
                             )
                         svc.start()
+                        # late-bind: the exporter predates the lazily
+                        # built service; its paths read these per request
+                        if exporter is not None and args.timeseries:
+                            exporter.store = svc.store
+                            exporter.alerts = getattr(svc, "alerts", None)
                         if exporter is not None and args.conformance:
-                            # late-bind: the exporter predates the lazily
-                            # built service
                             exporter.conformance_fn = getattr(
                                 svc, "conformance_report", None
                             )
+                        if exporter is not None and args.lanes:
+                            exporter.lanes_fn = getattr(svc, "lane_report", None)
                     kw = {}
                     if args.shards > 0:
                         kw["tenant"] = req.get("tenant", "default")
