@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases plants  # the steam cycles and the NLP lane alone
     python3 chip_smoke.py --phases cases   # the nuclear / solar cases and surrogates alone
     python3 chip_smoke.py --phases learn   # the learned-model tools and the planes' neutrality
+    python3 chip_smoke.py --phases horizon # the wind + battery year by time-axis ADMM alone
 
 Phases (any failure raises, and the script exits non-zero; each phase
 runs under the port's watchdog, `obs/watchdog.py::with_watchdog`, whose
@@ -30,6 +31,18 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               its capacity factors within 1e-12 of the CPU's, then each
               case through the port's driver on the card at the reference's
               tolerances; NPV, sizes and seconds printed
+  4c. horizon the wind + battery dispatch over rts303's 8,736 h by
+              time-axis ADMM (`renewables.horizon.wind_battery_horizon_solve`):
+              a coarse warm start (the year in 4-h steps, one dense solve),
+              then HORIZON_SWEEPS sweeps, each the 52 weekly chunks (168 h,
+              the dense IPM's weekly shape) as one batch of the diagonal-QP
+              IPM. Gates: every sweep's lanes converged and finite, the
+              boundary mismatch below 1 kWh (tests/test_time_axis.py), the
+              objective's gap to HiGHS on the monolithic LP (a child started
+              with the script, on the year HiGHS child's cores) within
+              HORIZON_GAP. Printed: sweeps, IPM iterations a sweep, the
+              phase's and the coarse solve's wall. It runs before `year`, so
+              the card works while the year's HiGHS child finishes.
   5. year     `run_year_sweep(scenarios=8, batch=8, hours=8760)`: mixed
               precision (f64 data and factorization in 5 SPIKE slabs, f32
               factors swept by the fused kernel, f64 refinement); all
@@ -39,9 +52,11 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               takes, beside the earlier phases; the phase waits for it
               before its timed work), kernel launches > 0,
               wall seconds, iterations, peak memory, and the kernel's share
-              of a profiled window of the same solve; then the same sweep
-              with a journal (`tracer=`): the host time inside the
-              tracer's calls, its wall beside the plain one, results bitwise
+              of a profiled window of the same solve; then the journal's
+              cost: the same 8 scenarios over JOURNAL_PAIR_HOURS, plain and
+              with a journal (`tracer=`, the same spans and records as at
+              the year): the host time inside the tracer's calls, the
+              journaled wall beside the plain one, results bitwise
   6. grad     design gradients through the LP solves:
               (a) weekly design (T=168, `build_pricetaker_design`):
                   `optimal_value` gradients in batt_kw, pem_kw, h2_price
@@ -87,7 +102,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   lane-iterations run beside 8 x the slowest lane's, the
                   wall beside the year batch's, launches by chain count;
               (b) the CLI, ``yearsweep --scenarios 16 --batch 8
-                  --warm-starts --adaptive --remedy --out <tmp>``: all 16
+                  --warm-starts --adaptive --remedy --cost --out <tmp>``: all 16
                   converged and stored, each batch's iterations (the
                   runner prints them, the warm one tagged) and the
                   iterations saved, a warm-started lane within 1e-3 of
@@ -99,6 +114,13 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   solve events carry stats and health for all 16 lanes,
                   span ends a device-memory watermark, no capture (every
                   lane healthy), and `tools/trace_summary.py` reads it;
+                  the first batch's ``--cost`` record (`obs.cost`, executed
+                  work) in its solve event: FLOPs > 0, the normal-equations
+                  products (``aten.bmm``), the block Cholesky
+                  (``aten.linalg_cholesky_ex``) and ``chain_sweep`` among
+                  the ledger's first COST_TOP entries, the roofline share
+                  of the card's measured peak (`chip_peak_tflops`, printed
+                  with the card and its power limit) at most 1;
               (c) the remedy ladder on the card: a rank-deficient dense LP
                   (reg_p = reg_d = 0) between two healthy ones through
                   `solve_lp_adaptive(remedy=RemedyPolicy(allow_lane_switch=
@@ -108,8 +130,13 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   capture, which `tools/torch_replay_solve.py` replays
                   bitwise on the card and with the same status on the CPU.
               (e) (a)'s run passes conformance=True: its lanes bitwise
-                  those of the same run without it, the certificates
-                  printed.
+                  those of the same run without it and with the
+                  performance probe on instead (`PerfProbe(capture_sizes=
+                  True)`), the certificates printed; every chunk record's
+                  phases sum bitwise to its wall, each key's counted cold
+                  call has FLOPs, each chunk's roofline share of the
+                  measured peak is at most 1; the phase split, the
+                  roofline points and the counted FLOPs printed.
               (f) learned warm starts on the year family: (a)'s 8 lanes
                   through `DatasetWriter.add_batch` (one family
                   fingerprint, hashed once for the batch: ms printed), a
@@ -141,7 +168,7 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   the CPU's;
               (b) the 52 weekly LPs (rts303, T=168, f64) through
                   `solve_lp_pdhg_adaptive` (PDLP controls, tol 1e-6,
-                  20,000 iterations, chunks of 2,000, conformance=True)
+                  18,000 iterations, chunks of 2,000, conformance=True)
                   and the dense IPM batch (tol 1e-8), weeks 0 and the
                   slowest through HiGHS: week 0 converged, every
                   converged lane within 1e-4 (1 + |obj_ipm|) of the IPM
@@ -149,13 +176,14 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   ConformancePolicy (comp and gap printed: PDHG does not
                   stop on them), the solver's residuals equal to the
                   certificates (rel 1e-9); the
-                  card against the port's CPU PDHG over two check periods
-                  (controls off within 1e-9); the first 8 weeks in chunks
-                  of 2,000 bitwise a one-shot solve;
+                  card against the port's CPU PDHG on 2 weeks over two
+                  check periods (controls off within 1e-9); the first 8
+                  weeks, 800 iterations in chunks of 400 bitwise a
+                  one-shot solve;
               (c) the year phase's 8 LMP scenarios x 8,760 h through
                   `solve_lp_pdhg` with the controls at a fixed budget of
-                  5,000 iterations, traced: finite, residuals equal to
-                  the certificates, two 1,000-iteration runs bitwise
+                  2,000 iterations, traced: finite, residuals equal to
+                  the certificates, two 400-iteration runs bitwise
                   equal; printed: the residual trajectory, the NPVs
                   against the year phase's, ms per iteration, peak memory;
               (d) the remedy ladder's lane switch both ways: a dense
@@ -173,27 +201,38 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
               reference its lane of a one-shot `solve_lp_batch` of its
               group of 8 (the last group padded by its own weeks):
               (a) burst: the 52 submitted at once to
-                  `make_dense_service(bucket=8, chunk_iters=8)`, drained:
-                  every ticket resolves, every lane converges, every row
-                  bitwise its reference; printed: wall, LPs/s, chunks,
-                  refills, the one-shot batch of 52's wall;
-              (b) open loop: 26 Poisson arrivals (`tools/torch_loadgen.py`
+                  `make_dense_service(bucket=8, chunk_iters=8, perf=True,
+                  capacity=SERVE_CAPACITY)`, drained: every ticket
+                  resolves, every lane converges, every row bitwise its
+                  reference (so both planes neutral); every chunk record
+                  of the probe sums bitwise to its wall, and the exporter's
+                  ``/capacity`` answers 200 with the report; printed: wall,
+                  LPs/s, chunks, refills, the one-shot batch of 52's wall,
+                  the phase split, the capacity estimate;
+              (a2) ramp: `tools/torch_loadgen.py`'s `run_ramp` (``--ramp
+                  --capacity``) over the weeks, SERVE_RAMP's rates as
+                  fractions of (a)'s LPs/s: every request answered ok, the
+                  observatory's estimate ok, its knee and shard
+                  recommendation finite, the service's headroom gauge
+                  published, its Little's-law residual below
+                  SERVE_LITTLES_BOUND;
+              (b) open loop: 13 Poisson arrivals (`tools/torch_loadgen.py`
                   `arrival_schedule`, seed 0) over the weeks
                   (`problem_seeds`, dup 0.25, seed mod 52) at 0.5 x (a)'s
                   rate, cache on: zero lost, every solve converged, every
                   answer (cache hits included) bitwise its week's
                   reference; latency p50/p95/p99 (`np.percentile`'s
-                  interpolation: at 26 requests p99 lies between the two
-                  slowest and p95 between the second and third slowest),
+                  interpolation: at 13 requests p99 and p95 lie between
+                  the two slowest),
                   goodput, cache hits, then the serial baseline on the
                   same schedule;
               (c) deadline: the slowest week with a timeout of half a
                   chunk resolves `deadline_exceeded` with a finite best
                   iterate;
               (d) fleet: `make_dense_fleet(2, 8, telemetry=True)`, both
-                  children on cuda:0: the 52 weeks bitwise (a)'s; a second
-                  pass over weeks 0-25 with shard 0 sent `fault exit` after
-                  13 submissions: zero lost, a respawn, requeued lanes
+                  children on cuda:0: weeks 39-51 bitwise (a)'s; a second
+                  pass over weeks 0-12 with shard 0 sent `fault exit` after
+                  6 submissions: zero lost, a respawn, requeued lanes
                   bitwise too; spawn to
                   first pong and to first result, the slowest ping, the
                   kill-to-first-result wall; the parent's
@@ -201,11 +240,11 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
                   series and the merged child counters to their fleet
                   aggregate; /metrics and /healthz scraped once from a
                   `TelemetryExporter` on 127.0.0.1 at an ephemeral port;
-              (e) a `torch.profiler` window of 3 chunks at bucket 8 in steady
+              (e) a `torch.profiler` window of 2 chunks at bucket 8 in steady
                   state: device-busy share, launches and device-to-host
                   scalar reads a chunk, device time by op; then the host
-                  time by phase (row copy, cold dispatch + scatter, resume,
-                  harvest) over 3 more chunks.
+                  time by phase over 2 more chunks (the performance
+                  probe's transfer, cold, compute, harvest, host).
               (f) a warm service: week 0 at 52 LMP scales (seed 0's
                   draw in [0.5, 2]), each solved cold in its group of 8; a
                   predictor trained on 40, the other 12 served through
@@ -379,7 +418,8 @@ limit (`PHASE_LIMITS_S`) turns a hang into a failure):
  13. learn    the learned-model tools on the card: the --self-check of
               tools/torch_train_warmstart.py, torch_train_screener.py,
               torch_train_laneroute.py and torch_lane_report.py, each
-              gated as its JAX counterpart gates; then 16 small LPs served
+              gated as its JAX counterpart gates, the four as child
+              processes started together; meanwhile 16 small LPs served
               with the lane observatory probing every solve and the
               time-series store on, bitwise the same service without them,
               and the adaptive entry with the observatory, bitwise; the
@@ -536,13 +576,17 @@ def sweep_bytes(D, S, m, k):
     return 4 * ((2 * S - 1) * D * m * m + 2 * D * S * m * k)
 
 
+def sweep_flops(D, S, m, k):
+    """Operations of one sweep: a product with each block read, 2 m^2 k
+    flops each."""
+    return 2 * (2 * S - 1) * D * m * m * k
+
+
 def bound_ms(D, S, m, k):
     """Least time of one sweep: `sweep_bytes` at the HBM rate, or its
-    2*(2S-1)*D*m^2*k flops (a product with each block read) at the f32
-    rate; the larger."""
-    flops = 2 * (2 * S - 1) * D * m * m * k
+    `sweep_flops` at the f32 rate; the larger."""
     b = sweep_bytes(D, S, m, k) / HBM_BYTES_PER_S * 1e3
-    f = flops / F32_FLOPS_PER_S * 1e3
+    f = sweep_flops(D, S, m, k) / F32_FLOPS_PER_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
 
 
@@ -712,7 +756,7 @@ def phase_year(highs, scenarios=8, batch=8, hours=8760):
     peak = torch.cuda.max_memory_allocated()
     iters = [r["iterations"] for r in recs]
     batch_s = sorted({r["batch_seconds"] for r in recs})
-    journal = _journal_overhead(scenarios, batch, hours, wall, recs)
+    journal = _journal_overhead(scenarios, batch)
     log(f"[year] {len(recs)} scenarios, batch {batch}: wall {wall:.1f} s "
         f"(batch solve {batch_s} s), iterations {iters}, mean {np.mean(iters):.1f}, "
         f"peak memory {peak / 2**30:.2f} GiB, chain_sweep launches {launches} "
@@ -818,15 +862,28 @@ class _TracerClock:
         self.seconds += time.perf_counter() - t
 
 
-def _journal_overhead(scenarios, batch, hours, plain_wall, plain_recs):
-    """The year sweep again with a journal to a file: the host seconds
-    spent inside the tracer's calls (spans, solve events, records), which
-    is the journal's cost, and the run's wall beside the plain run's just
-    before (one pair in a fixed order: their difference is not resolved
-    from run-to-run noise); the same iterations and NPVs bitwise."""
+# the journal-overhead pair's horizon (8,760 h, the year phase's sweep, before
+# the horizon phase): a sweep writes the same spans and records at any horizon
+JOURNAL_PAIR_HOURS = 720
+
+
+def _journal_overhead(scenarios, batch, hours=None):
+    """The sweep's scenarios over `hours` (JOURNAL_PAIR_HOURS), plain and
+    then with a journal to a file: the host seconds spent inside the
+    tracer's calls (spans, solve events, records: as many as at the year),
+    which is the journal's cost, and the journaled run's wall beside the
+    plain one's (one pair in a fixed order: their difference is not
+    resolved from run-to-run noise); the same iterations and NPVs
+    bitwise."""
     from dispatches_tpu_torch.obs.journal import Tracer
     from dispatches_tpu_torch.workflow.runners import run_year_sweep
 
+    hours = hours or JOURNAL_PAIR_HOURS
+    t0 = time.perf_counter()
+    plain_recs = run_year_sweep(scenarios=scenarios, batch=batch, hours=hours, device="cuda",
+                                verbose=False)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         tracer = _TracerClock(Tracer(f"{tmp}/year.jsonl"))
         t0 = time.perf_counter()
@@ -838,7 +895,8 @@ def _journal_overhead(scenarios, batch, hours, plain_wall, plain_recs):
         size = os.path.getsize(f"{tmp}/year.jsonl")
     same = all(a["iterations"] == b["iterations"] and a["NPV"] == b["NPV"]
                for a, b in zip(recs, plain_recs))
-    log(f"[year] journaled: {tracer.seconds * 1e3:.1f} ms inside the tracer's calls; wall "
+    log(f"[year] journaled, {scenarios} scenarios x {hours} h: {tracer.seconds * 1e3:.1f} ms "
+        f"inside the tracer's calls; wall "
         f"{wall:.2f} s beside the plain run's {plain_wall:.2f} s ({wall - plain_wall:+.2f} s, "
         f"one pair: not resolved); {len(tracer.events)} records, {size} bytes; iterations "
         f"and NPVs {'bitwise the plain run' if same else 'DIFFER from the plain run'}")
@@ -1215,6 +1273,7 @@ def _dense_lp(rows, device="cuda"):
 def _adaptive_year(year_records, hours):
     """(a): the year phase's lanes through lane retirement and compaction."""
     from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.obs.perf import PerfProbe
     from dispatches_tpu_torch.case_studies.renewables.pricetaker import (
         HybridDesign, build_pricetaker,
     )
@@ -1283,20 +1342,58 @@ def _adaptive_year(year_records, hours):
     if any(diff):
         raise AssertionError(f"lanes harvested at bucket {stats['buckets'][0]} differ from the "
                              f"year phase by {diff}")
-    # (e) the conformance plane only reads: the same run without it
+    # (e) the conformance plane only reads: the same run without it, with
+    # the performance probe instead (it only reads the clock; its key's
+    # first calls run under obs.cost's counter, so this run's wall is not
+    # (a)'s)
+    probe = PerfProbe(capture_sizes=True, device="cuda")
     off = solve_lp_banded_adaptive(meta, blp, chunk_iters=ADAPTIVE_CHUNK,
-                                   ladder_base=ADAPTIVE_LADDER, **kw)
+                                   ladder_base=ADAPTIVE_LADDER, perf=probe, **kw)
     same = _all_same(sol, off)
     conf = stats["conformance"]
     log(f"[adaptive] (e) conformance=True: {sum(ln['ok'] for ln in conf['lanes'])} of "
         f"{len(conf['lanes'])} lanes pass the default policy, worst {conf['worst']}; "
-        f"lanes {'bitwise equal to' if same else 'DIFFER from'} the same run without it")
+        f"lanes {'bitwise equal to' if same else 'DIFFER from'} the same run without it "
+        "(perf= on instead)")
     if not same:
-        raise AssertionError("conformance=True changed the adaptive year lanes")
+        raise AssertionError("conformance=True or perf= changed the adaptive year lanes")
+    perf = _adaptive_perf(probe)
     return dict(wall_s=wall, stats=stats, launches=launches, launches_by_chains=by_chains,
                 rel_max=float(rel.max()), bitwise_lanes=early, plain_lane_iterations=plain,
-                conformance_worst=conf["worst"],
+                conformance_worst=conf["worst"], perf=perf,
                 _ctx=dict(prog=prog, meta=meta, blp=blp, sol=sol, kw=kw, data=data))
+
+
+def _adaptive_perf(probe):
+    """(e)'s probe: every chunk record's phases sum bitwise to its wall; the
+    phase split, each chunk's roofline point against the card's measured
+    peak (at most 1), and each key's counted cold call printed."""
+    recs = probe.records
+    broken = [i for i, r in enumerate(recs) if sum(r["phases"].values()) != r["wall_s"]]
+    split = {}
+    for r in recs:
+        for k, v in r["phases"].items():
+            split[k] = split.get(k, 0.0) + v
+    # a key's FLOPs an iteration (from its counted call) times each chunk's
+    # own loop iterations; "counted": the chunk's wall ran under the counter
+    points = [(r["bucket"], r.get("flops"), r.get("achieved_tflops"), r.get("utilization"),
+               r.get("wall_basis", "uncounted")) for r in recs]
+    cold = [{k: r.get(k) for k in ("key", "elapsed_s", "flops", "bytes_accessed",
+                                   "chain_sweep_launches", "peak_bytes")}
+            for r in probe.compile_records if r["cache"] == "cold"]
+    log(f"[adaptive] (e) perf: {len(recs)} chunks, phase seconds "
+        f"{{{', '.join(f'{k}: {v:.3f}' for k, v in split.items())}}}, exact-sum broken in "
+        f"{len(broken)}; peak {probe.peak_tflops} TFLOP/s ({probe.peak_source}); roofline "
+        f"(bucket, flops, TFLOP/s, share, wall) {points}; cold calls counted {cold}")
+    shares = [u for *_, u, _ in points if u is not None]
+    if broken:
+        raise AssertionError(f"perf chunk records break the exact sum: {broken}")
+    if not cold or not all((c["flops"] or 0) > 0 for c in cold):
+        raise AssertionError(f"no counted cold call: {cold}")
+    if not shares or max(shares) > 1.0:
+        raise AssertionError(f"roofline shares {shares}: none, or above the measured peak")
+    return dict(phase_s=split, points=points, cold=cold, peak_tflops=probe.peak_tflops,
+                peak_source=probe.peak_source)
 
 
 def _adaptive_cli(hours, highs_npv=None):
@@ -1322,18 +1419,20 @@ def _adaptive_cli(hours, highs_npv=None):
         saved0 = metrics.snapshot()["counters"].get(saved_key, 0.0)
         chain_sweep.launches = 0
         t0 = time.perf_counter()
-        cli(["--journal", journal, "--record-failures", record] + argv + ["--out", store])
+        cli(["--journal", journal, "--record-failures", record] + argv
+            + ["--out", store, "--cost"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = chain_sweep.launches
         saved = metrics.snapshot()["counters"].get(saved_key, 0.0) - saved0
         rows = ResultStore(store).load()
         journal_checks = _journal_checks(journal, record, scenarios=16)
+        cost = _cost_checks(journal)
         chain_sweep.launches = 0
         cli(argv + ["--out", store])
         again, n_again = chain_sweep.launches, len(ResultStore(store).keys())
     log(f"[adaptive] (b) yearsweep --warm-starts --adaptive --remedy --journal "
-        f"--record-failures: 16 scenarios in "
+        f"--record-failures --cost: 16 scenarios in "
         f"{wall:.1f} s, {len(rows)} stored, chain_sweep launches {launches}, warm batch "
         f"saved {saved:.1f} iterations against the cold batch's mean; rerun: {again} "
         f"launches, {n_again} records")
@@ -1365,7 +1464,57 @@ def _adaptive_cli(hours, highs_npv=None):
     if not rel <= 1e-3:
         raise AssertionError(f"warm-started year NPV rel {rel:.2e} > 1e-3 vs HiGHS")
     return dict(wall_s=wall, launches=launches, iters_saved=saved, rel_vs_highs=rel,
-                journal=journal_checks, _npv_by_scale={v[0]: v[1] for v in rows.values()})
+                journal=journal_checks, cost=cost,
+                _npv_by_scale={v[0]: v[1] for v in rows.values()})
+
+
+# (b)'s cost ledger: the entries that must lead it (the normal-equations
+# products, the block Cholesky, the kernel), among its first COST_TOP
+COST_LEADERS = ("aten.bmm", "aten.linalg_cholesky_ex", "chain_sweep")
+COST_TOP = 5
+
+
+def _cost_checks(journal):
+    """(b)'s ``--cost`` record (the first batch's), read back from the
+    journal's solve events: executed FLOPs > 0, COST_LEADERS among the
+    ledger's first COST_TOP entries, the roofline share of the card's
+    measured peak at most 1."""
+    from dispatches_tpu_torch.obs.journal import read_journal
+
+    costs = [e["cost"] for e in read_journal(journal) if e["kind"] == "solve" and "cost" in e]
+    out = []
+    for i, c in enumerate(costs):
+        led = c["ledger"]
+        top = [r["op"] for r in led["by_op"][:COST_TOP]]
+        rl = c.get("roofline") or {}
+        out.append(dict(flops=c["flops"], bytes=c["bytes_accessed"],
+                        basis=c["flops_basis"], peak_bytes=c.get("peak_bytes"),
+                        wall_s=c["wall_s"], chain_sweep_launches=c["chain_sweep_launches"],
+                        top=[(r["op"], r["count"], r["flops"], round(r["flops_share"], 4))
+                             for r in led["by_op"][:COST_TOP]],
+                        achieved_tflops=rl.get("achieved_tflops"),
+                        utilization=rl.get("utilization"), peak_tflops=rl.get("peak_tflops"),
+                        peak_source=rl.get("peak_source"), wall_basis=rl.get("wall_basis")))
+        log(f"[adaptive] (b) --cost batch {i}: {c['flops']:.4e} FLOPs ({c['flops_basis']}), "
+            f"{c['bytes_accessed']:.4e} bytes, peak {c.get('peak_bytes', 0) / 2**30:.2f} GiB, "
+            f"chain_sweep launches {c['chain_sweep_launches']}, counted wall {c['wall_s']:.2f} "
+            f"s; ledger top {out[-1]['top']}; achieved {rl.get('achieved_tflops')} TFLOP/s "
+            f"over the {rl.get('wall_basis')} wall, "
+            f"{rl.get('utilization')} of the peak {rl.get('peak_tflops')} "
+            f"({rl.get('peak_source')})")
+        if not c["flops"] > 0:
+            raise AssertionError(f"(b) --cost batch {i}: no FLOPs counted")
+        missing = [op for op in COST_LEADERS if op not in top]
+        if missing:
+            raise AssertionError(f"(b) --cost batch {i}: {missing} not among the ledger's "
+                                 f"first {COST_TOP} ({top})")
+        u = rl.get("utilization")
+        if u is None or not 0.0 < u <= 1.0:
+            raise AssertionError(f"(b) --cost batch {i}: share of the measured peak {u}")
+    if len(out) != 1:
+        raise AssertionError(f"(b) --cost: {len(out)} cost records in the journal, want the "
+                             "first batch's")
+    return out
 
 
 def _journal_checks(journal, record, scenarios):
@@ -1636,11 +1785,19 @@ def phase_adaptive(year_records=None, highs_npv=None, n=8, hours=8760):
 
 PDLP_KW = dict(adaptive_restarts=True, primal_weight=True, linesearch=True)
 PDHG_TOL = 1e-6
-PDHG_MAX_ITER = 20_000  # (b): 100,000 before the cases phase, 40,000 before the learn legs
+# (b): 100,000 before the cases phase, 40,000 before the learn legs, 20,000
+# before the horizon phase; week 0, the lane (b) gates, converges at 17,000
+PDHG_MAX_ITER = 18_000
 PDHG_CHUNK = 2000
-PDHG_YEAR_ITERS = 5_000  # (c): a fixed budget, not a convergence run (20,000 before the cases phase)
-PDHG_REPEAT_ITERS = 1000  # (c): two runs of this many, bitwise equal
-PDHG_RESUME_ITERS = 4000  # (b): one-shot vs chunks of PDHG_CHUNK, 8 weeks (6,000 before the cases phase)
+# (c): a fixed budget, not a convergence run (20,000 before the cases phase,
+# 5,000 before the horizon phase); two runs of PDHG_REPEAT_ITERS, bitwise
+# equal (1,000 before the horizon phase)
+PDHG_YEAR_ITERS = 2_000
+PDHG_REPEAT_ITERS = 400
+# (b): one-shot vs chunks of PDHG_RESUME_CHUNK, 8 weeks (6,000 in chunks of 2,000
+# before the cases phase, 4,000 before the horizon phase)
+PDHG_RESUME_ITERS, PDHG_RESUME_CHUNK = 800, 400
+PDHG_CPU_WEEKS = 2  # (b): the card against the CPU on these weeks (4 before the horizon phase)
 OBJ_AGREE = 1e-4  # bench.py's obj_agree band: |obj - obj_ipm| <= 1e-4 (1 + |obj_ipm|)
 CERT_RTOL = 1e-9  # solver residuals vs the certificates
 
@@ -1657,6 +1814,8 @@ def _all_same(x, y):
 def _ulps(a, b):
     """Largest distance between two tensors in units of the last place."""
     a, b = a.double().cpu(), b.double().cpu()
+    if torch.equal(a, b):  # equal values (no NaN): 0 ulps, without the divisions
+        return 0.0
     ok = torch.isfinite(a) & torch.isfinite(b)
     if not torch.equal(a[~ok], b[~ok]):
         return float("inf")
@@ -1746,10 +1905,11 @@ def _fail(msg):
     _FAILS.append(msg)
 
 
-def _pdhg_card_vs_cpu(slp, weeks=4, iters=400):
-    """The card's PDHG against the port's own on the CPU, 4 weeks, two check
-    periods: controls off within 1e-9 (no near-tie decides a branch there),
-    controls on printed (the line search's accept tests part the two)."""
+def _pdhg_card_vs_cpu(slp, weeks, iters=400):
+    """The card's PDHG against the port's own on the CPU, `weeks` weeks, two
+    check periods: controls off within 1e-9 (no near-tie decides a branch
+    there), controls on printed (the line search's accept tests part the
+    two)."""
     from dispatches_tpu_torch.solvers.pdhg import solve_lp_pdhg
 
     sub = slp._replace(b=slp.b[:weeks], c=slp.c[:weeks], c0=slp.c0[:weeks])
@@ -1868,15 +2028,19 @@ def _scatter_order(hours=8760, device="cuda"):
             row[name] = dict(wall_ms=best[0], scatter_ms=best[1], scatter_calls=best[2])
         return row
 
+    ref_fp = {}  # the CPU's fingerprints, hashed once for both comparisons
+
     def compare(got, ref):
         row = {}
         for name in ref:
             g, r = got[name], ref[name]
             if isinstance(r, tuple):
                 ulps = {f: _ulps(a, b) for f, a, b in zip(r._fields, g, r)}
+                if name not in ref_fp:
+                    ref_fp[name] = lp_fingerprint(r)
                 row[name] = dict(ulps=max(ulps.values()),
                                  fields={f: u for f, u in ulps.items() if u},
-                                 fingerprint_equal=lp_fingerprint(g) == lp_fingerprint(r))
+                                 fingerprint_equal=lp_fingerprint(g) == ref_fp[name])
             else:
                 u = _ulps(g, r)
                 row[name] = dict(ulps=u, fingerprint_equal=u == 0)
@@ -2019,7 +2183,7 @@ def _pdhg_weekly():
         f"{int(conv.sum())}; residual certificates within it: {int(conv.sum()) - len(fails)}")
     if not cert_rel <= CERT_RTOL:
         _fail(f"solver residuals vs certificates rel {cert_rel:.3e}")
-    _pdhg_card_vs_cpu(slp)
+    _pdhg_card_vs_cpu(slp, weeks=PDHG_CPU_WEEKS)
 
     # chunked resume against the one-shot solve, first 8 weeks
     sub = slp._replace(b=slp.b[:8], c=slp.c[:8], c0=slp.c0[:8])
@@ -2029,11 +2193,11 @@ def _pdhg_weekly():
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     st = None
-    for stop in range(PDHG_CHUNK, PDHG_RESUME_ITERS + 1, PDHG_CHUNK):
+    for stop in range(PDHG_RESUME_CHUNK, PDHG_RESUME_ITERS + 1, PDHG_RESUME_CHUNK):
         seg, st = solve_lp_pdhg(sub, state=st, it_stop=stop, return_state=True, **kw)
     same = _all_same(one, seg) and _all_same(st_one, st)
     log(f"[pdhg] (b) 8 weeks, {PDHG_RESUME_ITERS} iterations one-shot ({one_s:.2f} s) and in "
-        f"chunks of {PDHG_CHUNK}: {'bitwise equal' if same else 'DIFFER'}")
+        f"chunks of {PDHG_RESUME_CHUNK}: {'bitwise equal' if same else 'DIFFER'}")
     if not same:
         _fail("chunked PDHG resume differs from the one-shot solve on the card")
     st = solve_lp_pdhg(slp, tol=0.0, max_iter=400, return_state=True, **PDLP_KW)[1]
@@ -2194,11 +2358,24 @@ def phase_pdhg(year_records=None):
 
 SERVE_BUCKET, SERVE_CHUNK = 8, 8
 SERVE_KW = dict(tol=1e-8, max_iter=60)  # the weekly dense IPM batch's options (pdhg (b))
-# (b): requests (104 before the cases phase, 52 before the learn legs; cut
-# to pay for them), repeats, x (a)'s rate
-SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 26, 0.25, 0.5
-SERVE_PROFILE_CHUNKS = 3
+# (b): requests (104 before the cases phase, 52 before the learn legs, 26
+# before the horizon phase; cut to pay for them), repeats, x (a)'s rate
+SERVE_REQUESTS, SERVE_DUP, SERVE_LOAD = 13, 0.25, 0.5
+SERVE_PROFILE_CHUNKS = 2  # (e): 3 before the horizon phase
 SERVE_DEVICE = "cuda"
+# (a): the capacity observatory's knobs on the burst's service
+SERVE_CAPACITY = dict(window=60.0, twin_every=5.0, p95_target=5.0)
+# (a2): the ramp over the weeks, offered rates as fractions of (a)'s LPs/s
+# (low, high, steps), requests a step, and the bound on Little's-law
+# residual: the JAX package's for a ramped live service
+# (tools/capacity_plan.py LITTLES_BOUND; PERF.md §6 says why not its
+# synthetic fixture's 0.1)
+SERVE_RAMP = (0.4, 1.6, 3)
+SERVE_RAMP_REQUESTS = 12
+# (d): the fleet's two passes, this many weeks each (26 before the horizon
+# phase): the last weeks, then the first with shard 0 killed halfway
+SERVE_FLEET_WEEKS = 13
+SERVE_LITTLES_BOUND = 0.5
 _SERVE_FAILS = []
 
 
@@ -2296,12 +2473,13 @@ def _serve_reference(rows):
 
 
 def _serve_burst(rows, ref):
-    """(a): the 52 weeks submitted at once to the in-process service."""
+    """(a): the 52 weeks submitted at once to the in-process service, with
+    the performance probe and the capacity plane on."""
     from dispatches_tpu_torch.core.program import lp_fingerprint
     from dispatches_tpu_torch.serve import make_dense_service
 
     svc = make_dense_service(SERVE_BUCKET, chunk_iters=SERVE_CHUNK, device=SERVE_DEVICE,
-                             **SERVE_KW)
+                             perf=True, capacity=dict(SERVE_CAPACITY), **SERVE_KW)
     t0 = time.perf_counter()
     tickets = [svc.submit(rows[w], request_id=f"w{w}") for w in range(len(rows))]
     t_sub = time.perf_counter() - t0
@@ -2331,9 +2509,102 @@ def _serve_burst(rows, ref):
         _serve_fail(f"(a) {len(diff)} weeks not bitwise the one-shot batch of 8 (week {w}: "
                     f"{diff[w]}; x ulps "
                     f"{_ulps(torch.as_tensor(res[w].solution.x), torch.as_tensor(ref[w].x))})")
+    planes = _serve_planes(svc, st["chunks"])
     return dict(wall_s=wall, lps=lps, submit_s=t_sub, fingerprint_s=fp_s,
                 chunks=st["chunks"], refills=st["refills"], chunk_s=wall / st["chunks"],
-                bitwise=not diff, lost=len(lost))
+                bitwise=not diff, lost=len(lost), planes=planes)
+
+
+def _serve_planes(svc, chunks):
+    """(a)'s planes: every chunk record of the probe keeps the exact-sum
+    contract (phases summing bitwise to its wall), and the exporter's
+    ``/capacity`` answers with the observatory's report. The bitwise gate
+    of (a) shows both neutral."""
+    from dispatches_tpu_torch.obs.exporter import TelemetryExporter
+    from tools.torch_loadgen import http_get
+
+    probe = svc.engine.perf
+    recs = probe.records
+    broken = [i for i, r in enumerate(recs) if sum(r["phases"].values()) != r["wall_s"]]
+    split = {}
+    for r in recs:
+        for k, v in r["phases"].items():
+            split[k] = split.get(k, 0.0) + v
+    t0 = time.perf_counter()
+    svc.capacity.tick(force=True)  # a full cycle: the laws, the twin, the knee
+    tick_s = time.perf_counter() - t0
+    exporter = TelemetryExporter(0, capacity_fn=svc.capacity.report).start()
+    try:
+        code, body = http_get(exporter.url("/capacity"))
+    finally:
+        exporter.stop()
+    cap = json.loads(body) if code == 200 else {}
+    est = cap.get("estimate") or {}
+    log(f"[serve] (a) planes: {len(recs)} chunk records of {chunks} chunks, exact-sum broken in "
+        f"{len(broken)}; phase seconds {{{', '.join(f'{k}: {v:.3f}' for k, v in split.items())}}}"
+        f"; segment calls cold / hit {probe.compiles}, the probe's own host time "
+        f"{probe.own_s * 1e3:.2f} ms; a forced capacity tick {tick_s * 1e3:.1f} ms; "
+        f"/capacity {code}: estimate ok "
+        f"{est.get('ok')}, throughput {est.get('throughput_per_sec')}/s, service time "
+        f"{est.get('service_time_s')} s, littles residual {est.get('littles_residual')}, "
+        f"desired shards {(cap.get('recommendation') or {}).get('desired_shards')}")
+    if len(recs) != chunks or broken:
+        _serve_fail(f"(a) probe: {len(recs)} records for {chunks} chunks, exact-sum broken "
+                    f"in chunks {broken[:5]}")
+    if code != 200 or "config" not in cap:
+        _serve_fail(f"(a) /capacity answered {code}")
+    return dict(records=len(recs), phase_s=split, compiles=dict(probe.compiles),
+                probe_own_s=probe.own_s, capacity_tick_s=tick_s, capacity_status=code,
+                estimate=est)
+
+
+def _serve_ramp(rows, lps):
+    """(a2): `tools/torch_loadgen.py`'s ramp (``--ramp --capacity``) over
+    the weeks: SERVE_RAMP's offered rates as fractions of (a)'s LPs/s, a
+    fresh service with the capacity observatory. Every request answered,
+    the observatory's estimate ok, its knee and shard recommendation
+    finite, the headroom gauge the saturation_approach rule reads, and its
+    Little's-law residual within SERVE_LITTLES_BOUND."""
+    import math
+
+    from dispatches_tpu_torch.obs import metrics as obs_metrics
+    from tools.torch_loadgen import run_ramp
+
+    lo, hi, steps = SERVE_RAMP
+    rep = run_ramp(lo * lps, hi * lps, steps, requests_per_step=SERVE_RAMP_REQUESTS,
+                   bucket=SERVE_BUCKET, chunk_iters=SERVE_CHUNK, dup_frac=0.0,
+                   capacity=dict(SERVE_CAPACITY), device=SERVE_DEVICE, problems=rows,
+                   solver_kw=SERVE_KW)
+    gauges = obs_metrics.snapshot()["gauges"]
+    headroom = {k: v for k, v in gauges.items() if k.startswith("capacity_headroom_ratio")}
+    cap = rep["capacity"] or {}
+    est = cap.get("estimate") or {}
+    twin = cap.get("twin") or {}
+    knee = (twin.get("knee") or {}).get("knee_rate_per_sec")
+    desired = (cap.get("recommendation") or {}).get("desired_shards")
+    littles = est.get("littles_residual")
+    unanswered = sum(r["offered"] - r["ok"] for r in rep["rows"])
+    for r in rep["rows"]:
+        log(f"[serve] (a2) ramp step {r['step']}: offered {r['rate_rps']:.3f}/s, goodput "
+            f"{r['goodput_rps']:.3f}/s, p50 / p95 {r['p50_s']} / {r['p95_s']} s, "
+            f"capacity {r.get('capacity')}")
+    log(f"[serve] (a2) observatory: knee {knee} req/s, desired shards {desired}, littles "
+        f"residual {littles}, utilization-law residual {est.get('utilization_residual')}, "
+        f"model error {twin.get('model_error_ratio')}, service time {est.get('service_time_s')}"
+        f" s, service quantiles {cap.get('service_quantiles')}, headroom {headroom}")
+    if 'capacity_headroom_ratio{shard="0"}' not in headroom:
+        _serve_fail(f"(a2) no headroom gauge for the service ({headroom})")
+    if unanswered:
+        _serve_fail(f"(a2) {unanswered} ramp requests not answered ok")
+    if not est.get("ok"):
+        _serve_fail("(a2) the capacity estimate never became ok")
+    if knee is None or not math.isfinite(knee) or knee <= 0 or desired is None or desired < 1:
+        _serve_fail(f"(a2) knee {knee}, desired shards {desired}: not finite")
+    if littles is None or not littles < SERVE_LITTLES_BOUND:
+        _serve_fail(f"(a2) Little's-law residual {littles} not below {SERVE_LITTLES_BOUND}")
+    return dict(rows=rep["rows"], knee=knee, desired_shards=desired, littles=littles,
+                utilization_residual=est.get("utilization_residual"),
+                model_error=twin.get("model_error_ratio"), headroom=headroom)
 
 
 def _serve_open_loop(rows, ref, lps):
@@ -2427,8 +2698,9 @@ def _fleet_pass(fleet, rows, kill_at=None):
 
 
 def _serve_fleet(rows, ref):
-    """(d): a 2-shard fleet on the one card, bitwise against (a); a second
-    pass with shard 0 killed halfway through the submissions."""
+    """(d): a 2-shard fleet on the one card, bitwise against (a): the last
+    SERVE_FLEET_WEEKS weeks, then the first SERVE_FLEET_WEEKS with shard 0
+    killed halfway through the submissions."""
     from dispatches_tpu_torch.obs import metrics as obs_metrics
     from dispatches_tpu_torch.obs.exporter import TelemetryExporter
     from dispatches_tpu_torch.serve import make_dense_fleet
@@ -2443,19 +2715,22 @@ def _serve_fleet(rows, ref):
         shards = [s.shard for s in fleet._slots]
         log(f"[serve] (d) fleet of 2 shards, child devices "
             f"{[s.device_env for s in shards]}, heartbeat_timeout {fleet.heartbeat_timeout} s")
-        res1, wall1, _ = _fleet_pass(fleet, rows)
+        first = len(rows) - SERVE_FLEET_WEEKS  # pass 1: weeks 39-51
+        res1, wall1, _ = _fleet_pass(fleet, rows[first:])
         start = [dict(pong_s=s.first_pong_at - s.spawned_at,
                       result_s=s.first_result_at - s.spawned_at, ping_max_s=s.ping_max)
                  for s in shards]
         lost1 = sum(r is None for r in res1)
-        diff1 = [w for w, r in enumerate(res1)
-                 if r is not None and (r.solution is None or _row_diff(r.solution, ref[w]))]
-        log(f"[serve] (d) pass 1: 52 weeks in {wall1:.2f} s ({52 / wall1:.2f} LPs/s), lost "
+        diff1 = [first + w for w, r in enumerate(res1)
+                 if r is not None and (r.solution is None
+                                       or _row_diff(r.solution, ref[first + w]))]
+        log(f"[serve] (d) pass 1: weeks {first}-{len(rows) - 1} in {wall1:.2f} s "
+            f"({len(res1) / wall1:.2f} LPs/s), lost "
             f"{lost1}, not bitwise (a) {len(diff1)}; spawn to first pong / first result / "
             f"slowest ping: " + ", ".join(
                 f"shard {i} {d['pong_s']:.3f} / {d['result_s']:.3f} / {d['ping_max_s']:.3f} s"
                 for i, d in enumerate(start)))
-        half = rows[:len(rows) // 2]  # weeks 0-25, shard 0 killed after 13
+        half = rows[:SERVE_FLEET_WEEKS]  # weeks 0-12, shard 0 killed after 6
         res2, wall2, kill_t = _fleet_pass(fleet, half, kill_at=len(half) // 2)
         s0 = shards[0]
         recovery = (s0.first_result_at - kill_t) if s0.first_result_at else None
@@ -2511,46 +2786,6 @@ def _serve_fleet(rows, ref):
     return out
 
 
-class _PhaseClock:
-    """`SlotEngine.observer` that times a chunk's phases on the host,
-    synchronizing the card at each boundary: the admitted rows' copy, the
-    cold dispatch and its scatter, the resume (with the chunk's one host
-    read), and the harvest's copy of the solution."""
-
-    def __init__(self, engine):
-        self.t = {"rows": 0.0, "cold": 0.0, "resume": 0.0, "harvest": 0.0}
-        self._mark = 0.0
-        sync_rows = engine._sync_rows
-
-        def timed_rows():
-            t0 = time.perf_counter()
-            sync_rows()
-            torch.cuda.synchronize()
-            self.t["rows"] += time.perf_counter() - t0
-            self._mark = time.perf_counter()
-
-        engine._sync_rows = timed_rows
-
-    def _lap(self, key):
-        now = time.perf_counter()
-        self.t[key] += now - self._mark
-        self._mark = now
-
-    def chunk_begin(self, tokens):
-        torch.cuda.synchronize()
-        self._mark = time.perf_counter()
-
-    def cold_end(self, tokens, fresh):
-        torch.cuda.synchronize()
-        self._lap("cold")
-
-    def compute_end(self, tokens, it0, it1):
-        self._lap("resume")
-
-    def harvest_end(self, tokens):
-        self._lap("harvest")
-
-
 def _serve_profile(rows):
     """(e): where a chunk's time goes, in steady state at bucket 8 (slots
     refilled from the 52 weeks as lanes retire)."""
@@ -2597,18 +2832,23 @@ def _serve_profile(rows):
         log(f"[serve] (e)   {us / 1e3:9.2f} ms  {name}")
     if dev_us == 0:
         log("[serve] (e) the profiler saw no device time: busy share not measured")
-    clock = _PhaseClock(eng)
-    eng.observer = clock
-    t0 = time.perf_counter()
+    # the host time by phase over n more chunks: the performance probe's
+    # marks (obs.perf; the chunk's one host read closes "compute")
+    from dispatches_tpu_torch.obs.perf import PerfProbe
+
+    eng.perf = PerfProbe(device=SERVE_DEVICE)
     for _ in range(n):
         chunk()
-    wall_p = time.perf_counter() - t0
-    log(f"[serve] (e) host time by phase over {n} more chunks (the card synchronized at each "
-        f"boundary; {wall_p:.3f} s in all): " + ", ".join(
-            f"{k} {v * 1e3:.1f} ms" for k, v in clock.t.items()))
+    phase = {}
+    for r in eng.perf.records:
+        for k, v in r["phases"].items():
+            phase[k] = phase.get(k, 0.0) + v
+    log(f"[serve] (e) host time by phase over {n} more chunks (the probe; "
+        f"{sum(r['wall_s'] for r in eng.perf.records):.3f} s in all): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in phase.items()))
     return dict(wall_s=wall, device_busy=busy, launches_per_chunk=launches / n,
                 scalar_reads_per_chunk=syncs / n,
-                phase_ms={k: v * 1e3 / n for k, v in clock.t.items()},
+                phase_ms={k: v * 1e3 / n for k, v in phase.items()},
                 top_ops=sorted(by_op.items(), key=lambda kv: -kv[1])[:8])
 
 
@@ -2721,6 +2961,10 @@ def phase_serve():
         return out
 
     burst = timed("(a)", lambda: _serve_burst(rows, ref))
+    # before (d): a fleet's per-shard in-flight gauges stay in the process
+    # registry after it closes, and the observatory would read them before
+    # the service's own lanes
+    ramp = timed("(a2)", lambda: _serve_ramp(rows, burst["lps"]))
     loop = timed("(b)", lambda: _serve_open_loop(rows, ref, burst["lps"]))
     late = timed("(c)", lambda: _serve_deadline(rows, ref, burst["chunk_s"]))
     fleet = timed("(d)", lambda: _serve_fleet(rows, ref))
@@ -2733,8 +2977,8 @@ def phase_serve():
         f"phase {time.perf_counter() - t0:.1f} s")
     if _SERVE_FAILS:
         raise AssertionError(f"serve phase: {len(_SERVE_FAILS)} gates failed: {_SERVE_FAILS}")
-    return dict(reference=one, burst=burst, open_loop=loop, deadline=late, fleet=fleet,
-                profile=prof, launches=launches, warm=warm)
+    return dict(reference=one, burst=burst, ramp=ramp, open_loop=loop, deadline=late,
+                fleet=fleet, profile=prof, launches=launches, warm=warm)
 
 
 # ------------------------------------------------------------------ market
@@ -4673,15 +4917,6 @@ LEARN_TOOLS = ("torch_train_warmstart", "torch_train_screener", "torch_train_lan
                "torch_lane_report")
 
 
-def _tool(name):
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _learn_neutral():
     """A small dense batch served with the lane observatory probing every
     solve and the time-series store on, against the same batch with both
@@ -4736,31 +4971,193 @@ def _learn_neutral():
                 adaptive_probe_ms=per * 1e3)
 
 
+# the learn tools' child processes, killed when the script ends
+_LEARN_CHILDREN = []
+
+
 def phase_learn():
-    """The `learn` phase (see the module docstring), on the card."""
+    """The `learn` phase (see the module docstring), on the card. The four
+    tools' self-checks run as child processes started together (each
+    reaches the card on its own, the host has a core for each, and none
+    keeps the card busy), the planes' neutrality in this process
+    meanwhile. Each child's output is printed when it has ended."""
     out = {}
-    for name in LEARN_TOOLS:
-        t0 = time.perf_counter()
-        mod = _tool(name)
-        rc = mod.self_check(device=LEARN_DEVICE) if name != "torch_lane_report" else \
-            mod.self_check(None, device=LEARN_DEVICE)
-        dt = time.perf_counter() - t0
-        log(f"[learn] {name} --self-check on {LEARN_DEVICE}: rc {rc} in {dt:.1f} s")
-        if rc != 0:
-            raise AssertionError(f"{name} --self-check failed on {LEARN_DEVICE} (rc {rc})")
-        out[name] = dict(rc=rc, seconds=dt)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    ends, procs = {}, {}
     t0 = time.perf_counter()
-    out["neutral"] = _learn_neutral()
-    log(f"[learn] neutrality in {time.perf_counter() - t0:.1f} s")
+    for name in LEARN_TOOLS:
+        f = tempfile.TemporaryFile(mode="w+")
+        p = subprocess.Popen([sys.executable, os.path.join(ROOT, "tools", f"{name}.py"),
+                              "--self-check", "--device", LEARN_DEVICE],
+                             cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT, text=True)
+        _LEARN_CHILDREN.append(p)
+        procs[name] = (p, f)
+
+        def wait(name=name, p=p):
+            p.wait()
+            ends[name] = time.perf_counter() - t0
+
+        threading.Thread(target=wait, daemon=True).start()
+    try:
+        t1 = time.perf_counter()
+        out["neutral"] = _learn_neutral()
+        log(f"[learn] neutrality in {time.perf_counter() - t1:.1f} s")
+        for name, (p, f) in procs.items():
+            rc = p.wait(timeout=PHASE_LIMITS_S["learn"])
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[learn]   {name} | {line}")
+            dt = ends.get(name, time.perf_counter() - t0)
+            log(f"[learn] {name} --self-check on {LEARN_DEVICE}: rc {rc}, ended {dt:.1f} s "
+                "after the four started")
+            if rc != 0:
+                raise AssertionError(f"{name} --self-check failed on {LEARN_DEVICE} (rc {rc})")
+            out[name] = dict(rc=rc, seconds=dt)
+    finally:
+        for p, f in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
     return out
+
+
+# ------------------------------------------------------------------ horizon
+HORIZON_DEVICE = "cuda"  # the CPU rehearses the phase with "cpu" at a short horizon
+HORIZON_HOURS = 8736  # rts303's DA hours
+HORIZON_CHUNK = 168  # a chunk a week: the dense IPM's weekly shape, 52 lanes a sweep
+# ADMM sweeps from the coarse warm start and the hours of its steps: the
+# defaults of `wind_battery_horizon_solve`. The last solve's residual is not
+# monotone in the sweeps (at 20 it read 14.4 kWh; PERF.md §6)
+HORIZON_SWEEPS = 80
+HORIZON_AGG = 4
+HORIZON_RESIDUAL = 1.0  # kWh: the boundary mismatch bound of tests/test_time_axis.py:126,131
+# the objective's gap to HiGHS on the monolithic LP, (obj - ref) / |ref|,
+# set from a CPU run of both packages at T = 672 (PERF.md §6): no worse than
+# the JAX package's documented worst (3.2% at T = 672,
+# tests/test_time_axis.py:160-170), and not below the monolithic optimum by
+# more than the consensus slack allows
+HORIZON_GAP = (-1e-3, 3.2e-2)
+
+
+def _horizon_mono(hours):
+    """The monolithic wind + battery LP over `hours` (tests/test_time_axis.py's
+    `_monolithic`): the program and rts303's parameters."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.core.model import Model
+    from dispatches_tpu_torch.units.battery import BatteryStorage
+    from dispatches_tpu_torch.units.splitter import ElectricalSplitter
+    from dispatches_tpu_torch.units.wind import WindPower
+
+    data = P.load_rts303()
+    m = Model("horizon_mono")
+    wind = WindPower(m, hours, capacity=P.FIXED_WIND_MW * 1e3, cf_param="wind_cf")
+    split = ElectricalSplitter(m, hours, inlet=wind.electricity_out,
+                               outlet_list=["grid", "battery"])
+    batt = BatteryStorage(m, hours, duration=P.BATTERY_DURATION_HRS,
+                          charging_eta=P.BATTERY_EFF, discharging_eta=P.BATTERY_EFF,
+                          degradation_rate=P.BATTERY_DEGRADATION, power_capacity=25e3,
+                          initial_soc=0.0, initial_throughput=0.0, periodic_soc=True)
+    m.add_eq(batt.elec_in - split.outlets["battery"])
+    lmp = m.param("lmp", hours)
+    rev = 1e-3 * (lmp * (split.outlets["grid"] + batt.elec_out))
+    profit = rev.sum() - (P.BATT_REP_COST_KWH * P.BATTERY_DEGRADATION) * (
+        batt.throughput[hours - 1: hours].sum())
+    m.minimize(-profit * 1e-5)
+    return m.build(), {"lmp": data["da_lmp"][:hours], "wind_cf": data["da_wind_cf"][:hours]}
+
+
+def _horizon_highs(out_path):
+    """`--horizon-highs`: HiGHS on the monolithic horizon LP, its objective
+    and seconds written as .npz; a child started with the script on the
+    cores `_start_year_highs` gives its child."""
+    from dispatches_tpu_torch.solvers.reference import solve_lp_scipy_sparse
+
+    cores = os.environ.get("YEAR_HIGHS_CORES")
+    if cores:
+        _pin({int(c) for c in cores.split(",")})
+    t0 = time.perf_counter()
+    prog, params = _horizon_mono(HORIZON_HOURS)
+    res = solve_lp_scipy_sparse(prog, params)
+    np.savez(out_path, obj=res.obj_with_offset, seconds=time.perf_counter() - t0,
+             shape=np.array([prog.M, prog.N]))
+
+
+def _start_horizon_highs():
+    """Start `_horizon_highs` in a child with the script, on the year HiGHS
+    child's cores (each HiGHS one thread)."""
+    path = os.path.join(tempfile.mkdtemp(prefix="horizon_"), "highs.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) >= 4:
+        env["YEAR_HIGHS_CORES"] = ",".join(map(str, cores[-2:]))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--horizon-highs", path], env=env)
+    return {"path": path, "proc": proc}
+
+
+def _wait_child(child, what, timeout=600):
+    rc = child["proc"].wait(timeout=timeout)
+    if rc != 0:
+        raise AssertionError(f"{what} child exited {rc}")
+    with np.load(child["path"]) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_horizon(highs):
+    """The `horizon` phase (see the module docstring); `highs` is
+    `_start_horizon_highs`'s child."""
+    from dispatches_tpu_torch.case_studies.renewables import params as P
+    from dispatches_tpu_torch.case_studies.renewables.horizon import wind_battery_horizon_solve
+    from dispatches_tpu_torch.solvers.chain_sweep import chain_sweep
+
+    hours = HORIZON_HOURS
+    data = P.load_rts303()
+    lmp, cf = data["da_lmp"][:hours], data["da_wind_cf"][:hours]
+    n_chunks = hours // HORIZON_CHUNK
+    chain_sweep.launches = 0
+    if HORIZON_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = wind_battery_horizon_solve(lmp, cf, n_chunks=n_chunks, admm_iters=HORIZON_SWEEPS,
+                                     agg=HORIZON_AGG, device=HORIZON_DEVICE)
+    obj, res = float(sol.obj), float(sol.primal_residual)
+    wall = time.perf_counter() - t0
+    st = sol.stats
+    ref = _wait_child(highs, "horizon HiGHS")
+    ref_obj = float(ref["obj"])
+    gap = (obj - ref_obj) / abs(ref_obj)
+    its = st["ipm_iterations"]
+    log(f"[horizon] wind + battery over {hours} h as {n_chunks} chunks of {HORIZON_CHUNK} h "
+        f"({sol.program.M} x {sol.program.N} a lane, f64) on {HORIZON_DEVICE}: "
+        f"{st['sweeps']} ADMM sweeps + the final solve in {wall:.2f} s (the coarse "
+        f"warm start, {hours // HORIZON_AGG} steps of {HORIZON_AGG} h, "
+        f"{sol.coarse_seconds:.2f} s of it; {(wall - sol.coarse_seconds) / len(its):.3f} s a "
+        f"batch of {n_chunks} lanes); IPM iterations a sweep {its}; every sweep converged "
+        f"and finite: {all(st['converged_finite'])}; objective {obj:.10e} against HiGHS "
+        f"{ref_obj:.10e} on the monolithic {int(ref['shape'][0])} x {int(ref['shape'][1])} LP "
+        f"({float(ref['seconds']):.1f} s in its child): gap {gap:.4e}, gate {HORIZON_GAP}; "
+        f"primal residual {res:.4e} kWh (< {HORIZON_RESIDUAL}), by sweep "
+        f"{[float(f'{r:.3g}') for r in st['residuals']]}; chain_sweep launches "
+        f"{chain_sweep.launches} (dense IPM only)")
+    if not all(st["converged_finite"]):
+        bad = [i for i, ok in enumerate(st["converged_finite"]) if not ok]
+        raise AssertionError(f"horizon sweeps {bad} had an unconverged or non-finite lane")
+    if not res < HORIZON_RESIDUAL:
+        raise AssertionError(f"horizon primal residual {res} kWh >= {HORIZON_RESIDUAL}")
+    if not HORIZON_GAP[0] <= gap <= HORIZON_GAP[1]:
+        raise AssertionError(f"horizon gap to HiGHS {gap:.4e} outside {HORIZON_GAP}")
+    return dict(wall_s=wall, coarse_s=sol.coarse_seconds, sweeps=st["sweeps"],
+                ipm_iterations=its, obj=obj, highs_obj=ref_obj, gap=gap, residual=res,
+                highs_s=float(ref["seconds"]), launches=chain_sweep.launches)
 
 
 # each phase runs under the port's watchdog with a generous limit: a phase
 # that hangs raises WatchdogTimeout (journaled as a "hang"), and the
 # script exits non-zero
-PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "year": 600,
-                  "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300, "market": 400,
-                  "plants": 600, "cases": 400, "learn": 300}
+PHASE_LIMITS_S = {"build": 300, "kernel": 300, "weekly": 300, "golden": 300, "horizon": 300,
+                  "year": 600, "grad": 600, "adaptive": 900, "pdhg": 900, "serve": 300,
+                  "market": 400, "plants": 600, "cases": 400, "learn": 300}
 
 
 def _guarded(name, fn):
@@ -4775,12 +5172,13 @@ def _guarded(name, fn):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernel,weekly,golden,year,grad,adaptive,pdhg,serve,market,plants,"
-                    "cases,learn",
-                    help="comma list of kernel, weekly, golden, year, grad, adaptive, pdhg, "
-                    "serve, market, plants, cases, learn (device and build always run)")
+                    default="kernel,weekly,golden,horizon,year,grad,adaptive,pdhg,serve,market,"
+                    "plants,cases,learn",
+                    help="comma list of kernel, weekly, golden, horizon, year, grad, adaptive, "
+                    "pdhg, serve, market, plants, cases, learn (device and build always run)")
     ap.add_argument("--cpu-tes-gradient", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--year-highs", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--horizon-highs", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cpu_tes_gradient:  # the plants phase's CPU reference child
         _cpu_tes_gradient(args.cpu_tes_gradient)
@@ -4788,21 +5186,29 @@ def main(argv=None):
     if args.year_highs:  # the year phase's HiGHS child
         _year_highs(args.year_highs)
         return 0
+    if args.horizon_highs:  # the horizon phase's HiGHS child
+        _horizon_highs(args.horizon_highs)
+        return 0
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     phase_device()
     child = _start_cpu_tes_gradient() if "plants" in phases else None
     highs = _start_year_highs() if "year" in phases else None
+    horizon_highs = _start_horizon_highs() if "horizon" in phases else None
     try:
-        return _run_phases(phases, t_start, child, highs)
+        return _run_phases(phases, t_start, child, highs, horizon_highs)
     finally:
-        for c in (child, highs):
+        for c in (child, highs, horizon_highs):
             if c is not None and c["proc"].poll() is None:
                 c["proc"].kill()
                 c["proc"].wait()
+        for p in _LEARN_CHILDREN:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
-def _run_phases(phases, t_start, child, highs):
+def _run_phases(phases, t_start, child, highs, horizon_highs):
     _guarded("build", phase_build)
     kernel_rows, max_err, main = (_guarded("kernel", phase_kernel) if "kernel" in phases
                                   else ([], None, {}))
@@ -4810,6 +5216,10 @@ def _run_phases(phases, t_start, child, highs):
         _guarded("weekly", phase_weekly)
     if "golden" in phases:
         _guarded("golden", phase_golden)
+    # before the year phase: the card works while the year's HiGHS child
+    # finishes, instead of the year phase waiting for it
+    horizon = (_guarded("horizon", lambda: phase_horizon(horizon_highs))
+               if "horizon" in phases else {})
     year = _guarded("year", lambda: phase_year(highs)) if "year" in phases else {}
     grad = (_guarded("grad", lambda: phase_grad(year.get("records"), year.get("highs_x")))
             if "grad" in phases else {})
@@ -4838,6 +5248,11 @@ def _run_phases(phases, t_start, child, highs):
                              "adaptive_year": adaptive.get("year", {}).get("launches"),
                              "yearsweep_warm_adaptive": adaptive.get("cli", {}).get("launches"),
                              "adaptive_learned_warm": adaptive.get("learned", {}).get("launches"),
+                             # the journaled yearsweep's counted batch (--cost)
+                             "yearsweep_cost": sum(
+                                 c["chain_sweep_launches"]
+                                 for c in adaptive.get("cli", {}).get("cost", [])) or None,
+                             "horizon": horizon.get("launches"),
                              "serve": serve.get("launches"),
                              "market": market.get("launches"),
                              "plants": plants.get("chain_sweep_launches"),

@@ -1,8 +1,13 @@
 """Renewables case study: the price-taker design LP, the solar-hydrogen
-load-following design and the surrogate-based conceptual design.
-(`renewables/horizon.py` of the JAX package waits for `parallel/`,
-ROADMAP A7.)"""
+load-following design, the surrogate-based conceptual design and the
+wind + battery horizon by time-axis decomposition (`horizon`)."""
 
+from .horizon import (
+    WindBatteryChunk,
+    build_chunk,
+    coarse_boundary_states,
+    wind_battery_horizon_solve,
+)
 from .conceptual_design import (
     ConceptualDesignInputs,
     conceptual_design_dynamic_RE,

@@ -29,10 +29,10 @@ three endpoints an operator actually points things at:
 - ``/alerts``  — the attached `obs.alerts.AlertManager`'s report.
 - ``/lanes``   — the attached ``lanes_fn`` (the service's
   `lane_report`): the lane observatory's scoreboards and route advice.
-
-The JAX package's ``/capacity`` (its capacity plane) comes with ROADMAP
-A7: ``capacity_fn=`` raises NotImplementedError, and the path answers
-501.
+- ``/capacity`` — the attached ``capacity_fn`` (the fleet's
+  `capacity_report`, or a service's ``capacity.report``): the measured
+  service laws, the twin's knee, the breach forecast and the shard
+  recommendation; 404 until one is attached.
 
 Design rules, same as the rest of `obs`: stdlib only, off by default
 (nothing starts a server unless a tool passes ``--exporter-port``),
@@ -76,8 +76,6 @@ class TelemetryExporter:
         capacity_fn: Optional[Callable[[], Dict[str, Any]]] = None,
         lanes_fn: Optional[Callable[[], Dict[str, Any]]] = None,
     ):
-        if capacity_fn is not None:
-            raise NotImplementedError("capacity_fn= is not ported yet (ROADMAP A7)")
         self.host = str(host)
         self.port = int(port)
         self.registry = registry
@@ -88,6 +86,7 @@ class TelemetryExporter:
         self.alerts = alerts  # obs.alerts.AlertManager, serves /alerts
         self.conformance_fn = conformance_fn  # serves /conformance
         self.lanes_fn = lanes_fn  # serves /lanes
+        self.capacity_fn = capacity_fn  # serves /capacity
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -174,10 +173,12 @@ class TelemetryExporter:
                     )
                 return 200, "application/json", _json_bytes(self.lanes_fn())
             if path == "/capacity":
-                return (
-                    501, "text/plain; charset=utf-8",
-                    b"not ported yet (ROADMAP A7)\n",
-                )
+                if self.capacity_fn is None:
+                    return (
+                        404, "text/plain; charset=utf-8",
+                        b"no capacity plane attached\n",
+                    )
+                return 200, "application/json", _json_bytes(self.capacity_fn())
             if path == "/conformance":
                 if self.conformance_fn is None:
                     return (

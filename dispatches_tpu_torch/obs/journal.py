@@ -22,8 +22,9 @@ The records, their kinds and keys are the JAX package's (schema 8), so
 - ``retraces`` in ``span_end`` and ``retrace_totals`` in ``close`` are
   always ``{}``: they count jit retraces (`obs/retrace.py`), which eager
   PyTorch does not have.
-- The JAX package's Tracer also writes ``compile_event`` records; those
-  come with the performance observatory (ROADMAP A7).
+- ``compile_event`` records (`obs.perf`) mark a key's first segment call
+  in the process: eager PyTorch compiles nothing, but that call carries
+  the first use of the linear-algebra libraries' handles.
 
 A manifest carries ``trace_id`` / ``parent_span_id`` when the process was
 started with a traceparent in `obs.reqtrace.TRACEPARENT_ENV`, and the
@@ -223,6 +224,13 @@ class Tracer:
         self._emit({"kind": "metric", "ts": time.time(), "name": name, "value": value,
                     "span": self._where(), **attrs})
 
+    def compile_event(self, **fields: Any) -> None:
+        """Record one cold segment call (`obs.perf.PerfProbe.note_compile`):
+        key, entry, elapsed seconds, hit or cold and, with size capture,
+        its counted cost. "Cold" is the key's first call in the process."""
+        self._emit({"kind": "compile_event", "ts": time.time(), "span": self._where(),
+                    **fields})
+
     def solve_event(self, name: str, sol: Any, trace: Any = None, **attrs: Any) -> None:
         """Record a solve result: the `batch_stats` summary of `sol`, its
         trajectory stats when a `SolveTrace` is supplied, and its health
@@ -304,6 +312,9 @@ class NullTracer:
         pass
 
     def journey(self, **fields: Any) -> None:
+        pass
+
+    def compile_event(self, **fields: Any) -> None:
         pass
 
     def close(self) -> None:

@@ -63,13 +63,15 @@ the learned router (``lane_model=``, `learn.laneroute`) predicts, with
 the advice as its fallback; ``"static"`` and None never re-lane
 (`_relane_advice`).
 
-The JAX package's `perf` option is not ported yet; it raises
-NotImplementedError, naming the ROADMAP item that brings it. Its
-persistent compile cache and compile-hit accounting manage XLA's
-executables and have no counterpart in eager PyTorch.
+``perf=`` (an `obs.perf.PerfProbe`, on the three entries and as
+``SlotEngine.perf``) measures each chunk's phases and times every segment
+call, "cold" being a key's first call in the process; it reads the host
+clock only. The JAX package's persistent compile cache manages XLA's
+executables and has no counterpart in eager PyTorch.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -77,7 +79,8 @@ import numpy as np
 import torch
 
 from ..obs import metrics as obs_metrics
-from ..solvers.ipm import _reject_deferred, _tree_map
+from ..obs.perf import first_call
+from ..solvers.ipm import _tree_map
 
 obs_metrics.describe(
     "adaptive_lanes_retired_total",
@@ -138,7 +141,7 @@ def _stack_rows(cls, rows):
 
 def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
                     sol_cls, max_iter, chunk_iters, ladder, warm_start, trace,
-                    stats):
+                    stats, perf=None):
     """Host-side retirement / compaction loop shared by the dense, banded
     and PDHG entry points.
 
@@ -147,7 +150,12 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
     its gathered states; both return ``(solution, state)``, the trace
     riding in ``state.trace``. A lane retires when its state is `done` or
     out of iterations. Returns the solution rows stacked in the original
-    lane order, and the stitched traces (or None)."""
+    lane order, and the stitched traces (or None).
+
+    `perf` (an `obs.perf.PerfProbe`) measures each chunk's dispatch /
+    compute / harvest / host phases and times every segment call; it
+    reads the host clock only, so the results are bitwise those without
+    it."""
     device = data[0].device
     dtype = next(a.dtype for a in data if torch.is_floating_point(a))
 
@@ -183,17 +191,31 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
         prev_stop = stop
         it_stop += chunk_iters
         stop = min(it_stop, max_iter)
-        if st_cur is not None:
-            sol, st = seg_resume(d_cur, st_cur, stop)
-        else:
-            sol, st = seg_cold(d_cur, w_cur, stop)
+        resume = st_cur is not None
+        pc = None
+        if perf is not None:
+            key = (entry, bucket, "resume" if resume else "cold")
+            hit = first_call(key)
+            pc = perf.chunk(entry)
+        with perf.capture(key, hit, device) if pc is not None else contextlib.nullcontext():
+            if resume:
+                sol, st = seg_resume(d_cur, st_cur, stop)
+            else:
+                sol, st = seg_cold(d_cur, w_cur, stop)
+        if pc is not None:
+            perf.note_compile(entry, key, hit, perf.clock() - pc.t0, kind=key[2])
+            pc.mark("dispatch")
         chunks += 1
         buckets_used.append(bucket)
         # the chunk's one host read: every row's stop flag and iteration
         done_h, it_h = torch.stack([st.done.long(), st.it]).cpu().tolist()
+        if pc is not None:
+            pc.mark("compute")
         finished = [d or i >= max_iter for d, i in zip(done_h, it_h)]
         # every row still running entered the chunk at prev_stop
         loop_iters = max(it_h) - prev_stop
+        if pc is not None:
+            perf.credit(pc, key, loop_iters, entry)
         lane_iterations += bucket * loop_iters
         padded_lane_iterations += (bucket - len(set(cur_map))) * loop_iters
 
@@ -211,7 +233,11 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
                 still.append((row, lane))
         newly = len(active) - len(still)
         active = [lane for _, lane in still]
+        if pc is not None:
+            pc.mark("harvest")
         if not active:
+            if pc is not None:
+                pc.done(bucket=bucket, chunk=chunks)
             break
         # lanes that stopped consuming device time while the batch runs on
         lanes_retired += newly
@@ -228,6 +254,10 @@ def _adaptive_drive(entry, fields_cls, data, axes, batch, seg_cold, seg_resume,
             st = _tree_map(lambda a: a.index_select(0, idx), st)
             bucket = new_bucket
         st_cur = st
+        if pc is not None:
+            # retirement and compaction are the "host" phase; the chunk ran
+            # at buckets_used[-1] (compaction may just have shrunk `bucket`)
+            pc.done(bucket=buckets_used[-1], chunk=chunks)
 
     if lanes_retired:
         obs_metrics.inc("adaptive_lanes_retired_total", lanes_retired, entry=entry)
@@ -493,12 +523,11 @@ def solve_lp_adaptive(
     `lanes`, `lane_policy` and `lane_model` as in the module docstring
     (the paired lane here is PDHG, reached through `runtime.remedy`'s
     program and row maps; an advised lane that does not converge falls
-    back to the native path). `perf` is not ported yet and raises
-    NotImplementedError."""
+    back to the native path). `perf` (an `obs.perf.PerfProbe`) measures
+    each chunk's phases; the results are bitwise those without it."""
     from ..core.program import LPData
     from ..solvers.ipm import _LP_NDIM, IPMSolution, solve_lp
 
-    _reject_deferred(perf=perf)
     t_wall = time.monotonic()
     axes, batch = _batch_axes(LPData, _LP_NDIM, lp)
     _pred: dict = {}
@@ -547,7 +576,7 @@ def solve_lp_adaptive(
     out, tr = _adaptive_drive(
         "solve_lp", LPData, lp, axes, batch, seg_cold, seg_resume, IPMSolution,
         max_iter, chunk_iters, bucket_ladder(batch, ladder_base), warm_start,
-        trace, stats,
+        trace, stats, perf,
     )
     if remedy is not None:
         out, tr = _apply_remedy(remedy, LPData, lp, axes, batch, out, tr,
@@ -587,12 +616,11 @@ def solve_lp_banded_adaptive(
     `warm_predictor` seeds the lanes in the banded solver's frame (the
     reduced columns of ``meta.col_pos``, the banded rows); `lanes`
     journals lane decisions, and as the banded lane has no paired lane,
-    every `lane_policy` is accepted and none re-lanes. `perf` is not
-    ported yet and raises NotImplementedError."""
+    every `lane_policy` is accepted and none re-lanes. `perf` as in
+    `solve_lp_adaptive`."""
     from ..solvers.ipm import IPMSolution
     from ..solvers.structured import _BASE_NDIM, BandedLP, solve_lp_banded, solve_lp_banded_batch
 
-    _reject_deferred(perf=perf)
     t_wall = time.monotonic()
     axes, batch = _batch_axes(BandedLP, _BASE_NDIM, blp)
     _relane_advice(lanes, lane_policy, blp, "banded", batch, trace)
@@ -631,7 +659,7 @@ def solve_lp_banded_adaptive(
         lambda d, w, stop: segment(d, w, None, stop),
         lambda d, s, stop: segment(d, None, s, stop),
         IPMSolution, max_iter, chunk_iters, bucket_ladder(batch, ladder_base),
-        warm_start, trace, stats,
+        warm_start, trace, stats, perf,
     )
     if remedy is not None:
         out, tr = _apply_remedy(remedy, BandedLP, blp, axes, batch, out, tr,
@@ -672,12 +700,11 @@ def solve_lp_pdhg_adaptive(
     (``adaptive_restarts``, ``primal_weight``, ``linesearch``, ``polish``)
     ride through ``solver_kw`` into `solve_lp_pdhg`. `warm_predictor`
     seeds ``(x, y)``; `lanes`, `lane_policy` and `lane_model` mirror
-    `solve_lp_adaptive`, the paired lane here the dense IPM. `perf` is
-    not ported yet and raises NotImplementedError."""
+    `solve_lp_adaptive`, the paired lane here the dense IPM. `perf` as in
+    `solve_lp_adaptive`."""
     from ..core.program import SparseLP
     from ..solvers.pdhg import _SPARSE_NDIM, PDHGSolution, solve_lp_pdhg
 
-    _reject_deferred(perf=perf)
     t_wall = time.monotonic()
     axes, batch = _batch_axes(SparseLP, _SPARSE_NDIM, lps)
     _pred: dict = {}
@@ -742,7 +769,7 @@ def solve_lp_pdhg_adaptive(
     out, tr = _adaptive_drive(
         "solve_lp_pdhg", SparseLP, lps, axes, batch, seg_cold, seg_resume,
         PDHGSolution, max_iter, chunk_iters, bucket_ladder(batch, ladder_base),
-        warm_start, trace, stats,
+        warm_start, trace, stats, perf,
     )
     if remedy is not None:
         out, tr = _apply_remedy(remedy, SparseLP, lps, axes, batch, out, tr,
@@ -904,6 +931,9 @@ class SlotEngine:
         # optional obs.conformance.ConformanceChecker: every harvested row
         # is certified into lane_stats["conformance"]; rows are not touched
         self.conformance = None
+        # optional obs.perf.PerfProbe: phase-attributed chunk timings and
+        # first-call telemetry, host clocks only
+        self.perf = None
         self._warm_fn = warm_fn
         self._warm_buf = None  # (bucket, ...) host seed mirror per part
         self._warm_src = [None] * bucket  # slot -> seed source label
@@ -1040,10 +1070,16 @@ class SlotEngine:
         if not any(t is not None for t in self._tokens):
             return []
         watch = self.observer
+        perf = self.perf
+        pc = perf.chunk(self.entry) if perf is not None else None
         if watch is not None:
             watch.chunk_begin(self._tokens)
         if self._stale:
             self._sync_rows()
+            if pc is not None:
+                # admitted rows copied to the device; a chunk with nothing
+                # admitted skips the phase
+                pc.mark("transfer")
         occupied = np.asarray([t is not None for t in self._tokens])
 
         if any(self._fresh):
@@ -1051,7 +1087,14 @@ class SlotEngine:
                 self._zero_stops = torch.zeros(self.bucket, dtype=torch.int64,
                                                device=self.device)
             w_arg = self._warm_seeds() if self._warm_fn is not None else None
+            if pc is not None:
+                key_c = (self.entry, self.bucket, "cold")
+                hit_c = first_call(key_c)
+                t0c = perf.clock()
             _, st0 = self.seg_cold(self._d_cur, w_arg, self._zero_stops)
+            if pc is not None:
+                perf.note_compile(self.entry, key_c, hit_c, perf.clock() - t0c,
+                                  kind="cold")
             # the first chunk routes through the same scatter as every later
             # one (every row selected)
             first = self._st is None
@@ -1062,13 +1105,26 @@ class SlotEngine:
             self._st = _where_rows(sel, st0, st0 if first else self._st)
             if watch is not None:
                 watch.cold_end(self._tokens, self._fresh)
+            if pc is not None:
+                # the zero-stop cold start and its scatter (no iteration,
+                # so no FLOPs are credited here)
+                pc.mark("cold")
             self._fresh = [False] * self.bucket
 
         it_before = self._it_mark
         stops = np.where(
             occupied, np.minimum(self._it_mark + self.chunk_iters, self.max_iter), 0
         ).astype(np.int64)
-        sol, st = self.seg_resume(self._d_cur, self._st, torch.as_tensor(stops, device=self.device))
+        stops_dev = torch.as_tensor(stops, device=self.device)
+        if pc is None:
+            sol, st = self.seg_resume(self._d_cur, self._st, stops_dev)
+        else:
+            key_r = (self.entry, self.bucket, "resume")
+            hit_r = first_call(key_r)
+            t0r = perf.clock()
+            with perf.capture(key_r, hit_r, self.device):
+                sol, st = self.seg_resume(self._d_cur, self._st, stops_dev)
+            perf.note_compile(self.entry, key_r, hit_r, perf.clock() - t0r, kind="resume")
         self._st = st
         self._it_mark = stops
         self.chunks += 1
@@ -1080,6 +1136,11 @@ class SlotEngine:
         finished = done_h.astype(bool) | (its >= self.max_iter)
         if watch is not None:
             watch.compute_end(self._tokens, it_before, stops)
+        if pc is not None:
+            # the loop ran as many iterations as its furthest lane advanced
+            ran = its[occupied] - np.asarray(it_before)[occupied]
+            perf.credit(pc, key_r, int(ran.max()) if ran.size else 0, self.entry)
+            pc.mark("compute")
 
         out = []
         slots = []
@@ -1119,6 +1180,8 @@ class SlotEngine:
             obs_metrics.inc("adaptive_lanes_retired_total", len(out), entry=self.entry)
             if watch is not None:
                 watch.harvest_end([tok for tok, _, _ in out])
+            if pc is not None:
+                pc.mark("harvest")
             if self.conformance is not None:
                 # a released slot's mirror row stays until the next admit,
                 # so the lane's problem is still there; certified on the host
@@ -1126,6 +1189,10 @@ class SlotEngine:
                     lane_stats["conformance"] = self.conformance.check_row(
                         self._row_problem(i), row, entry=self.entry
                     )
+                if pc is not None:
+                    pc.mark("conformance")
+        if pc is not None:
+            pc.done(bucket=self.bucket, chunk=self.chunks, retired=len(out))
         return out
 
 

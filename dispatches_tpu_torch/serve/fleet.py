@@ -41,9 +41,10 @@ The parent's remediation ladder re-solves on the fleet's `device`. The
 time-series store and alert manager (``timeseries=``, ``store=``,
 ``alert_rules=``, ``slo_fn=``), the lane observatory and its routing
 policies (``lanes=``, ``lane_policy=``, ``lane_model=``) and learned warm
-starts (``warm_model=``) are opt-in and leave the answers bitwise as they
-are; the JAX package's capacity plane (``capacity=``) comes with ROADMAP
-A7 and raises NotImplementedError.
+starts (``warm_model=``) and the capacity plane (``capacity=``,
+`obs.capacity`: the measured service laws, the fleet twin, per-shard
+``capacity_headroom_ratio``, ``fleet_desired_shards``) are opt-in and
+leave the answers bitwise as they are.
 """
 from __future__ import annotations
 
@@ -172,9 +173,6 @@ class FleetService:
         lane_model=None,
         device="cuda",
     ):
-        from ..solvers.ipm import _reject_deferred
-
-        _reject_deferred(capacity=capacity)
         if not shards:
             raise ValueError("a fleet needs at least one shard")
         self._slots = [_ShardSlot(s) for s in shards]
@@ -269,7 +267,8 @@ class FleetService:
         self.store = store
         self.alerts = None
         self._ts_force = False
-        if timeseries and self.store is None:
+        capacity_on = capacity is not None and capacity is not False
+        if (timeseries or capacity_on) and self.store is None:
             from ..obs.timeseries import SeriesStore
 
             self.store = SeriesStore(clock=clock)
@@ -299,6 +298,18 @@ class FleetService:
             )
             # zero-seed so the first poison produces a computable rate
             self.store._registry().inc("poisoned_requests_total", 0)
+        # capacity observatory: the measured service laws and the fleet
+        # twin, ticked from pump() after each fresh store sample; it reads
+        # retained telemetry only
+        self.capacity = None
+        if capacity_on:
+            from ..obs.capacity import as_capacity
+
+            self.capacity = as_capacity(
+                capacity, store=self.store, lanes_per_shard=ref.bucket,
+                shards=len(shards), queue_limit=queue_limit, clock=clock,
+                up_shards_fn=lambda: sum(1 for s in self._slots if s.state == "up"),
+            )
         self._lock = threading.RLock()
         self._seq = 0
         self._thread: Optional[threading.Thread] = None
@@ -445,6 +456,8 @@ class FleetService:
                 self._ts_force = False
                 if sampled and self.alerts is not None:
                     self.alerts.evaluate(t)
+                if sampled and self.capacity is not None:
+                    self.capacity.tick(t)
         return done
 
     def _harvest(self) -> int:
@@ -1090,6 +1103,15 @@ class FleetService:
                 out["canary"] = self.canary.report()
         return out
 
+    def capacity_report(self) -> dict:
+        """The exporter's ``/capacity`` payload: the measured service
+        laws, the twin's validation and knee, the breach forecast and the
+        damped shard recommendation. Empty when the plane is off."""
+        with self._lock:
+            if self.capacity is None:
+                return {}
+            return self.capacity.report()
+
     def lane_report(self) -> dict:
         """The exporter's ``/lanes`` payload: the lane observatory's
         scoreboards and route advice. Empty when the plane is off."""
@@ -1141,6 +1163,8 @@ class FleetService:
                 out["timeseries"] = self.store.stats()
             if self.alerts is not None:
                 out["alerts_firing"] = self.alerts.firing()
+            if self.capacity is not None:
+                out["capacity"] = self.capacity.report()
             if self.lanes is not None:
                 out["lanes"] = self.lanes.report()
             for status in ("ok", "cached"):
@@ -1211,15 +1235,16 @@ def make_dense_fleet(
     and re-solves a sampled fraction on the alternate IPM<->PDHG lane from
     ``pump()``; ``lane_policy="advice"`` lets the router's affinity stage
     consult its damped ``route_advice``, ``"model"`` the trained
-    lane-portfolio artifact (``lane_model``) first. All off by default and
-    neutral for solve results. `capacity` (ROADMAP A7) is not ported yet
-    and raises NotImplementedError."""
+    lane-portfolio artifact (``lane_model``) first. ``capacity`` (True / a
+    mapping of `obs.capacity.CapacityObservatory` knobs / an observatory)
+    attaches the capacity plane, ticked from ``pump()`` after each store
+    sample (it implies a `SeriesStore`; ``fleet.capacity_report()`` is the
+    exporter's ``/capacity``). All off by default and neutral for solve
+    results."""
     import os
 
     from ..runtime.adaptive import _require_device
-    from ..solvers.ipm import _reject_deferred
 
-    _reject_deferred(capacity=capacity)
     if n_shards <= 0:
         raise ValueError(f"n_shards must be positive (got {n_shards})")
     _require_device(device)  # before any child is spawned
@@ -1245,7 +1270,7 @@ def make_dense_fleet(
     return FleetService(
         shards, queue_limit=queue_limit, tenants=tenants, cache=cache,
         clock=clock, reqtrace=reqtrace, spawn=spawn, timeseries=timeseries,
-        conformance=conformance, canary=canary, lanes=lanes,
+        conformance=conformance, canary=canary, capacity=capacity, lanes=lanes,
         lane_policy=lane_policy, lane_model=lane_model, device=device,
         **fleet_kw,
     )

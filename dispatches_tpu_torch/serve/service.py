@@ -28,11 +28,11 @@ verdicts (``shed``, ``deadline_exceeded``) flowing into the same
 `solve_verdict_total` counters the solver health engine uses.
 
 Learned warm starts (``warm_model=``), the time-series store
-(``timeseries=`` / ``store=``) and the lane observatory (``lanes=``) are
-opt-in planes that only read the solves: with them on, every answer is
-bitwise the one without them (a rejected warm seed is the cold start).
-The JAX package's capacity plane and performance probe (``capacity=``,
-``perf=``) come with ROADMAP A7 and raise NotImplementedError until then.
+(``timeseries=`` / ``store=``), the lane observatory (``lanes=``), the
+capacity plane (``capacity=``, `obs.capacity`) and the performance probe
+(``perf=``, `obs.perf`) are opt-in planes that only read the solves: with
+them on, every answer is bitwise the one without them (a rejected warm
+seed is the cold start).
 """
 
 from __future__ import annotations
@@ -108,9 +108,7 @@ class DispatchService:
         lane: str = "dense",
     ):
         from ..obs.lanes import as_lanes
-        from ..solvers.ipm import _reject_deferred
 
-        _reject_deferred(capacity=capacity)
         self.engine = engine
         self.queue = AdmissionQueue(queue_limit)
         self.cache = cache
@@ -126,6 +124,10 @@ class DispatchService:
         # pump() calls maybe_sample on the service clock; the sampler only
         # reads registry floats
         self.store = store
+        # obs.capacity.CapacityObservatory (None = off, the default): tick()
+        # runs from pump() after the store sample, reading retained
+        # telemetry only
+        self.capacity = capacity
         # obs.lanes.LaneObservatory (None = off, the default): every
         # resolved solve journals a lane_decision and may be sampled for a
         # shadow-lane probe; tick() runs the budgeted probes from pump()
@@ -281,6 +283,8 @@ class DispatchService:
             )
             if self.store is not None:
                 self.store.maybe_sample(self.clock())
+            if self.capacity is not None:
+                self.capacity.tick(self.clock())
             if self.lanes is not None:
                 # shadow-lane probes at batch priority: after every
                 # primary dispatch and harvest of this cycle
@@ -583,6 +587,8 @@ class DispatchService:
                 out["conformance"] = conf.report()
             if self.store is not None:
                 out["timeseries"] = self.store.stats()
+            if self.capacity is not None:
+                out["capacity"] = self.capacity.report()
             if self.lanes is not None:
                 out["lanes"] = self.lanes.report()
             for status in ("ok", "cached"):
@@ -653,14 +659,19 @@ def make_dense_service(
     answers over history. `lanes` (True / `obs.lanes.LaneConfig` knobs
     mapping / a `LaneObservatory`) journals a ``lane_decision`` per
     resolved solve and runs budgeted shadow-lane probes from `pump()`.
-    Both only read; the answers are bitwise those without them.
 
-    `perf` and `capacity` (ROADMAP A7) are not ported yet and raise
-    NotImplementedError."""
+    `perf=True` attaches an `obs.perf.PerfProbe` on the service clock as
+    ``engine.perf``: every chunk gets phase-attributed wall time and every
+    segment call first-call (cold / hit) telemetry. `capacity` (True / a
+    mapping of `obs.capacity.CapacityObservatory` knobs / an observatory)
+    attaches the capacity observatory, ticked from `pump()`: the measured
+    service laws, the fleet twin, the ``capacity_headroom_ratio`` and
+    ``fleet_desired_shards`` gauges; it implies a `SeriesStore`.
+
+    Each of these planes only reads; the answers are bitwise those
+    without them."""
     from ..runtime.adaptive import make_dense_engine
-    from ..solvers.ipm import _reject_deferred
 
-    _reject_deferred(perf=perf, capacity=capacity)
     remedy_engine = None
     if remedy is not None:
         from ..runtime.remedy import as_remedy
@@ -677,13 +688,28 @@ def make_dense_service(
     )
     if engine.conformance is not None:
         engine.conformance.seed_metrics("serve_dense")
+    if perf:
+        from ..obs.perf import PerfProbe
+
+        # on the service clock: deadlines, journeys and phases share it
+        engine.perf = PerfProbe(clock=clock, device=device)
     cache = ResultCache(cache_size) if cache_size else None
     store = None
-    if timeseries:
+    capacity_on = capacity is not None and capacity is not False
+    if timeseries or capacity_on:
         from ..obs.timeseries import SeriesStore
 
         store = SeriesStore(clock=clock)
+    observatory = None
+    if capacity_on:
+        from ..obs.capacity import as_capacity
+
+        observatory = as_capacity(
+            capacity, store=store, lanes_per_shard=bucket, shards=1,
+            queue_limit=queue_limit, clock=clock,
+        )
     return DispatchService(
         engine, queue_limit=queue_limit, cache=cache, clock=clock,
-        reqtrace=reqtrace, store=store, lanes=lanes, lane="dense",
+        reqtrace=reqtrace, store=store, capacity=observatory, lanes=lanes,
+        lane="dense",
     )

@@ -304,12 +304,29 @@ def chain_sweep(J, C, R, reverse: bool = False):
     chain_sweep.launches += 1
     by = chain_sweep.launches_by_chains
     by[chains] = by.get(chains, 0) + 1
+    flops, nbytes = sweep_work(chains, S, m, k)
+    chain_sweep.flops += flops
+    chain_sweep.bytes += nbytes
     return out
 
 
-# launches of the kernel, in all and by the launch's chain count
+# launches of the kernel, in all and by the launch's chain count, and the
+# work they did (`sweep_work`; `obs.cost` adds it to what the dispatcher
+# counts, as the kernel runs outside it)
 chain_sweep.launches = 0
 chain_sweep.launches_by_chains = {}
+chain_sweep.flops = 0
+chain_sweep.bytes = 0
+
+
+def sweep_work(chains: int, S: int, m: int, k: int):
+    """``(flops, bytes)`` of one sweep over `chains` chains of `S` steps:
+    a product with each of the 2S - 1 factor blocks of a chain it reads
+    (neither direction needs C_0), 2 m^2 k flops each; the bytes are those
+    blocks, R read once and the output written once, in f32."""
+    flops = 2 * (2 * S - 1) * chains * m * m * k
+    nbytes = 4 * ((2 * S - 1) * chains * m * m + 2 * chains * S * m * k)
+    return flops, nbytes
 
 
 def chain_solve(J, C, r):

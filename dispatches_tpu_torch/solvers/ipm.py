@@ -96,19 +96,6 @@ def pin_matmul_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-# options of the JAX package whose modules are not ported yet, and the
-# ROADMAP.md item that brings each
-_DEFERRED = {"perf": "A7", "capacity": "A7", "cost": "A7"}
-
-
-def _reject_deferred(**kw) -> None:
-    for name, v in kw.items():
-        if v is not None and v is not False:
-            item = _DEFERRED.get(name)
-            where = f" (ROADMAP {item})" if item else ""
-            raise NotImplementedError(f"{name}= is not ported yet{where}")
-
-
 def _chol(K: torch.Tensor, symmetrize: bool = True) -> torch.Tensor:
     """Lower Cholesky factor of each matrix in `K`; NaN where a matrix is not
     positive definite (XLA's convention, which the breakdown guards rely

@@ -118,7 +118,7 @@ def train_surrogate(
     seed: int = 0,
     mesh: Optional[object] = None,
     verbose: bool = False,
-    device="cuda",
+    device=None,
     init_model: Optional[SurrogateMLP] = None,
 ) -> Tuple[TrainedSurrogate, Dict]:
     """Full-batch Adam on standardized inputs and outputs, in float32 on
@@ -126,13 +126,22 @@ def train_surrogate(
     array}. The weights start from Flax's initialization drawn from a
     generator seeded with `seed`, or from a copy of `init_model` (e.g. one
     carried across from the JAX package by `convert.mlp_from_flax`).
-    ``mesh=`` (data-parallel training over a device mesh) is refused: the
-    port trains on one device (ROADMAP A7)."""
+    ``mesh=`` (a `parallel.mesh.DeviceMesh`, where the JAX package shards
+    the batch over its devices) trains on the mesh's one device, bitwise
+    as ``mesh=None`` on that device; a `device` other than the mesh's
+    raises. Without a mesh, `device` defaults to the card."""
     if mesh is not None:
-        raise NotImplementedError(
-            "train_surrogate(mesh=...) shards the batch over a device mesh; "
-            "the port trains on one device (parallel/ is ROADMAP A7)"
-        )
+        if mesh.size != 1:
+            raise ValueError(f"train_surrogate: a mesh of {mesh.size} devices; the "
+                             "port trains on one")
+        if device is not None:
+            asked, own = torch.device(device), mesh.device
+            if asked.type != own.type or asked.index not in (None, own.index):
+                raise ValueError(f"train_surrogate: device {asked} is not the mesh's "
+                                 f"device {own}")
+        device = mesh.device
+    elif device is None:
+        device = "cuda"
     X = np.asarray(X, dtype=np.float32)
     y = np.asarray(y, dtype=np.float32)
     if y.ndim == 1:

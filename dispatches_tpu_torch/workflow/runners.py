@@ -30,13 +30,15 @@ or unhealthy solve into a capped ring buffer (replay with
 `tools/torch_replay_solve.py`), and ``--profile-dir DIR`` writes a
 `torch.profiler` trace of the whole command. The runners take ``tracer=``
 (default: the process tracer) and `run_year_sweep` ``trace=True``
-(per-iteration traces, summarized in the journal). Cost records (the JAX
-package's ``cost=`` / ``--cost``, its XLA cost model) are not ported and
-are refused.
+(per-iteration traces, summarized in the journal). ``cost=True`` /
+``yearsweep --cost`` counts the first batch's executed FLOPs, bytes and
+peak device memory (`obs.cost`) into its journal solve event, with a
+roofline point against the card's measured peak.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import sys
@@ -49,9 +51,9 @@ import torch
 from ..obs import health as obs_health
 from ..obs import metrics as obs_metrics
 from ..obs import recorder as obs_recorder
+from ..obs.cost import CostCounter, with_roofline
 from ..obs.journal import get_tracer
 from ..runtime.native import ResultStore
-from ..solvers.ipm import _reject_deferred
 from .options import SimulationOptions
 
 TOPOLOGIES = ("wind_battery", "wind_pem", "wind_pem_tank_turbine")
@@ -347,15 +349,23 @@ def run_year_sweep(
     adaptive stats, and with ``trace=True`` the per-iteration traces'
     summary. With a flight recorder installed, a batch with an unhealthy
     lane is captured (`solve_lp_banded_batch`, archival: the static
-    structure is not serialized). ``cost=True`` (the JAX package's XLA
-    cost records) is refused."""
+    structure is not serialized).
+
+    ``cost=True`` solves the first batch under `obs.cost.CostCounter` (the
+    JAX package also costs its first batch only) and puts its record in
+    that batch's solve event (``cost``): the executed FLOPs
+    (``flops_basis: "executed"``, where the JAX package's XLA model counts
+    a loop body once), the bytes, the peak device memory, a ledger by
+    operation with the `chain_sweep` kernel's launches, and a roofline
+    point (FLOPs over the batch's wall against
+    `obs.cost.chip_peak_tflops`). The counter intercepts every operation,
+    so that batch's wall grows; the answers are bitwise those without it."""
     from ..case_studies.renewables import params as P
     from ..case_studies.renewables.pricetaker import HybridDesign, build_pricetaker
     from ..runtime.adaptive import solve_lp_banded_adaptive
     from ..runtime.telemetry import batch_stats
     from ..solvers.structured import extract_time_structure, solve_lp_banded_batch
 
-    _reject_deferred(cost=cost)
     if remedy and not adaptive:
         raise ValueError("remedy requires adaptive=True (the ladder acts on "
                          "the lanes the adaptive solve retires)")
@@ -430,17 +440,22 @@ def run_year_sweep(
                 ad_stats = {} if adaptive else None
                 if lmps.device.type == "cuda":
                     torch.cuda.synchronize(lmps.device)
+                counted = cost and lo == 0
+                counter = CostCounter(lmps.device) if counted else contextlib.nullcontext()
                 t0 = time.perf_counter()
-                if adaptive:
-                    solve_out = solve_lp_banded_adaptive(
-                        meta, blp_b, warm_start=warm_b, stats=ad_stats, remedy=remedy,
-                        trace=trace, **solver_kw)
-                else:
-                    solve_out = solve_lp_banded_batch(
-                        meta, blp_b, warm_start=warm_b, trace=trace, **solver_kw)
+                with counter:
+                    if adaptive:
+                        solve_out = solve_lp_banded_adaptive(
+                            meta, blp_b, warm_start=warm_b, stats=ad_stats, remedy=remedy,
+                            trace=trace, **solver_kw)
+                    else:
+                        solve_out = solve_lp_banded_batch(
+                            meta, blp_b, warm_start=warm_b, trace=trace, **solver_kw)
                 sol, sol_tr = solve_out if trace else (solve_out, None)
                 convs = sol.converged.cpu().numpy()[: len(todo)]
                 solve_wall = time.perf_counter() - t0
+                batch_cost = (with_roofline(counter.record(), solve_wall, lmps.device,
+                                            wall_basis="counted") if counted else None)
                 npvs = prog.eval_expr("NPV", sol.x, params).cpu().numpy()[: len(todo)]
                 stats = batch_stats(sol)
                 iters_b = sol.iterations.cpu().numpy()[: len(todo)]
@@ -467,6 +482,7 @@ def run_year_sweep(
                     "year_batch", sol, trace=sol_tr, warm_starts=warm_b is not None,
                     adaptive=adaptive, iterations_total=int(iters_b.sum()),
                     **({"adaptive_stats": ad_stats} if ad_stats else {}),
+                    **({"cost": batch_cost} if counted else {}),
                 )
                 if obs_recorder.get_recorder() is not None:
                     # the flight recorder: the batch's problem when a lane went bad
@@ -667,6 +683,11 @@ def main(argv=None):
         help="arm the remediation ladder on unhealthy adaptive lanes (cold "
         "retry -> regularize -> f64; runtime.remedy; requires --adaptive)",
     )
+    ys.add_argument(
+        "--cost", action="store_true",
+        help="count the first batch's executed FLOPs, bytes and peak memory with a "
+        "roofline point into its journal solve event (obs.cost; slows that batch)",
+    )
 
     args = p.parse_args(argv)
     if getattr(args, "remedy", False) and not args.adaptive:
@@ -705,7 +726,7 @@ def main(argv=None):
                     correctors=args.correctors, inv_factors=args.inv_factors,
                     store_path=args.out, device=args.device,
                     warm_starts=args.warm_starts, adaptive=args.adaptive,
-                    remedy=True if args.remedy else None,
+                    remedy=True if args.remedy else None, cost=args.cost,
                 )
     finally:
         if recorder is not None:

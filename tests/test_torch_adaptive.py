@@ -412,20 +412,29 @@ def test_cli_refusals_match_jax(tmp_path):
             main(args)
     with pytest.raises(ValueError, match="adaptive"):
         TW.run_year_sweep(scenarios=1, batch=1, hours=48, remedy=True, device="cpu")
-    # `trace=` and `tracer=` are taken now (tests/test_torch_journal.py); the
-    # JAX package's XLA cost records are not ported
-    with pytest.raises(NotImplementedError, match="cost"):
-        TW.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", cost=True)
+    # both CLIs take --cost (the port counts executed work, obs.cost) and
+    # still refuse --remedy without --adaptive beside it
+    for main in (JW.main, TW.main):
+        with pytest.raises(SystemExit):
+            main(args + ["--cost"])
 
 
 @pytest.mark.parametrize("opt", ["perf"])
-def test_unported_adaptive_options_are_refused(opt, band):
+def test_unported_adaptive_options_are_refused(opt, band, band_cold_adaptive):
+    """No option is refused any more: with the performance probe on, the
+    dense and banded adaptive entries give bitwise the answers without it,
+    and every chunk record keeps the exact-sum contract."""
+    from dispatches_tpu_torch.obs.perf import PerfProbe
+
     lp = _tlp(_small(_HEALTHY, _HEALTHY))
-    with pytest.raises(NotImplementedError, match=opt):
-        TA.solve_lp_adaptive(lp, **{opt: object()})
+    probe = PerfProbe()
+    _assert_bitwise(TA.solve_lp_adaptive(lp), TA.solve_lp_adaptive(lp, **{opt: probe}))
     meta, blp = band[:2]
-    with pytest.raises(NotImplementedError, match=opt):
-        TA.solve_lp_banded_adaptive(meta, blp, **{opt: object()})
+    _assert_bitwise(band_cold_adaptive, TA.solve_lp_banded_adaptive(meta, blp, **{opt: probe}))
+    assert probe.chunks >= 2
+    for rec in probe.records:
+        assert sum(rec["phases"].values()) == rec["wall_s"]
+        assert list(rec["phases"])[:2] == ["dispatch", "compute"]
 
 
 @pytest.fixture(scope="module")

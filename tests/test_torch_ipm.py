@@ -105,5 +105,10 @@ def test_batch_lanes_and_trace_match_jax():
         assert int(one.iterations) == n
         assert float(one.obj) == pytest.approx(float(got.obj[i]), rel=1e-10)
         assert tuple(one_tr.gap.shape) == (max_iter,)
-    with pytest.raises(NotImplementedError):  # an adaptive option not ported yet
-        solve_lp_adaptive(tbatch, perf=True)
+    # the adaptive entry with the performance probe: the same lanes
+    from dispatches_tpu_torch.obs.perf import PerfProbe
+
+    probe = PerfProbe()
+    ad = solve_lp_adaptive(tbatch, perf=probe, max_iter=max_iter)
+    np.testing.assert_array_equal(ad.iterations.numpy(), got.iterations.numpy())
+    assert probe.chunks >= 1

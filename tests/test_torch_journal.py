@@ -304,7 +304,7 @@ def test_remedy_give_up_captures_and_journals(tmp_path):
 def test_runners_journal_trace_and_record_failures(tmp_path):
     """`--journal`, `--record-failures` and `--profile-dir` on the CLI, and
     `tracer=` / `trace=` on the runners, are taken (no longer refused);
-    `cost=` still is."""
+    and so is `cost=` (the executed-work record in the solve event)."""
     journal, record, prof = tmp_path / "j.jsonl", tmp_path / "rec", tmp_path / "prof"
     assert TRun.main(["--device", "cpu", "--journal", str(journal), "--record-failures",
                       str(record), "--profile-dir", str(prof), "yearsweep", "--scenarios",
@@ -335,5 +335,9 @@ def test_runners_journal_trace_and_record_failures(tmp_path):
                          "battery_ratio_sweep/point_0", "battery_ratio_sweep"]
     results = [e for e in tracer.events if e.get("name") == "point_result"]
     assert [r["verdict"] for r in results] == ["healthy", "healthy"]
-    with pytest.raises(NotImplementedError, match="cost"):
-        TRun.run_year_sweep(scenarios=1, batch=1, hours=48, device="cpu", cost=True)
+    costed = TJ.Tracer()
+    TRun.run_year_sweep(scenarios=1, batch=1, hours=48, verbose=False, device="cpu",
+                        tracer=costed, cost=True)
+    (solve,) = [e for e in costed.events if e["kind"] == "solve"]
+    assert solve["cost"]["flops"] > 0 and solve["cost"]["flops_basis"] == "executed"
+    assert solve["cost"]["roofline"]["achieved_tflops"] > 0

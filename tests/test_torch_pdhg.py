@@ -343,8 +343,16 @@ def test_pdhg_adaptive_conformance_is_neutral():
 
 def test_pdhg_adaptive_refusals():
     lp = _tlp(_mk_batch((0, 1)))
-    with pytest.raises(NotImplementedError, match="perf"):
-        TA.solve_lp_pdhg_adaptive(lp, perf=object())
+    # the performance probe is taken: every chunk measured, the answer
+    # bitwise the one without it
+    from dispatches_tpu_torch.obs.perf import PerfProbe
+
+    kw = dict(tol=1e-6, max_iter=600, chunk_iters=200)
+    probe = PerfProbe()
+    _assert_bitwise(TA.solve_lp_pdhg_adaptive(lp, **kw),
+                    TA.solve_lp_pdhg_adaptive(lp, perf=probe, **kw))
+    assert probe.chunks >= 1
+    assert all(sum(r["phases"].values()) == r["wall_s"] for r in probe.records)
     bad = lp._replace(rows=lp.rows.expand(2, -1))
     with pytest.raises(ValueError, match="shared sparsity pattern"):
         TA.solve_lp_pdhg_adaptive(bad)

@@ -175,8 +175,9 @@ def test_exporter_serves_a_local_socket():
     ex = TelemetryExporter(0, registry=reg, store=store)
     status, _, body = ex.handle_path("/query?name=serve_queue_depth&window=10")
     assert status == 200 and json.loads(body)["series"][0]["v"] == [3.0]
-    with pytest.raises(NotImplementedError, match="A7"):
-        TelemetryExporter(0, capacity_fn=dict)
+    # the capacity route answers with whatever report is attached
+    ex = TelemetryExporter(0, registry=reg, capacity_fn=dict)
+    assert ex.handle_path("/capacity")[:2] == (200, "application/json")
 
 
 def test_service_journeys_in_the_journal(tmp_path, capsys):

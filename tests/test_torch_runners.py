@@ -3,6 +3,7 @@ runners.py`) against the JAX package's, and the port's independence from
 JAX and from the JAX package. The sweeps' checkpoints and the battery
 sweep are in `test_torch_checkpoints.py`.
 """
+import inspect
 import re
 from pathlib import Path
 
@@ -29,8 +30,11 @@ def test_year_sweep_matches_jax():
         assert g["iterations"] == w["iterations"]
         assert g["NPV"] == pytest.approx(w["NPV"], rel=1e-3)
         assert g["batch_seconds"] > 0
-    with pytest.raises(NotImplementedError, match="cost"):
-        T.run_year_sweep(scenarios=1, batch=1, hours=96, cost=True, device="cpu")
+    # `cost=` is taken now and off by default (its records are checked in
+    # tests/test_torch_journal.py and tests/test_torch_perf_cost.py): the
+    # records above carry none
+    assert inspect.signature(T.run_year_sweep).parameters["cost"].default is False
+    assert not any("cost" in g for g in got)
 
 
 def test_year_sweep_default_meets_highs():
@@ -84,7 +88,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     sources += [ROOT / "chip_smoke.py"] + [
         ROOT / "tools" / f"{name}.py"
         for name in ("torch_replay_solve", "torch_serve_dispatch", "torch_loadgen",
-                     "torch_banded_precision")
+                     "torch_banded_precision", "torch_capacity_plan", "torch_bench_history")
     ]
     assert len(sources) > 10
     found = {p.relative_to(ROOT).as_posix() for p in sources}
@@ -114,6 +118,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "case_studies/rankine/surrogate_design", "tea/npv", "tea/arma",
                  "tea/syn_hist", "surrogates/__init__", "surrogates/clustering",
                  "surrogates/data", "surrogates/train", "surrogates/embed"):
+        assert f"dispatches_tpu_torch/{name}.py" in found, name
+    # the capacity plane, the probe and cost records, the bench history and
+    # the horizon decomposition
+    for name in ("obs/signals", "obs/capacity", "obs/benchstore", "obs/cost", "obs/perf",
+                 "parallel/__init__", "parallel/mesh", "parallel/time_axis",
+                 "case_studies/renewables/horizon"):
         assert f"dispatches_tpu_torch/{name}.py" in found, name
     assert (ROOT / "dispatches_tpu_torch" / "csrc" / "tes_chain.cu").exists()
     bad = re.compile(

@@ -148,8 +148,13 @@ def test_guards_match_jax(case120):
         TS.solve_lp_banded(tmeta, tblp, mesh=object())
     with pytest.raises(ValueError, match="sharding"):
         TS.solve_lp_banded_batch(tmeta, tblp, sharding=object())
-    with pytest.raises(NotImplementedError):  # an adaptive option not ported yet
-        solve_lp_banded_adaptive(tmeta, tblp, perf=True)
+    # the performance probe is taken; an unbatched problem takes the plain
+    # solve, so it has no chunk to measure
+    from dispatches_tpu_torch.obs.perf import PerfProbe
+
+    probe = PerfProbe()
+    solve_lp_banded_adaptive(tmeta, tblp, perf=probe, max_iter=1)
+    assert probe.chunks == 0
     # pure f32 data IS allowed under "fused" (one iteration suffices here)
     b32 = TS.BandedLP(*(a.float() for a in tblp))
     with pytest.warns(TS.SmallTF32Warning):

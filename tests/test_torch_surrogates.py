@@ -172,8 +172,22 @@ def test_training_fits_and_refuses_a_mesh():
     sur, metrics = train_surrogate(X, y, hidden=(32, 32), epochs=800, lr=3e-3, device="cpu")
     assert metrics["R2"][0] > 0.97
     assert tuple(sur.predict(X[:5]).shape) == (5, 1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        train_surrogate(X, y, epochs=1, mesh=object(), device="cpu")
+    # a one-device mesh trains on its device, bitwise as mesh=None; another
+    # device than the mesh's, and a mesh of more devices, are refused (the
+    # port trains on one)
+    from dispatches_tpu_torch.parallel import DeviceMesh, scenario_mesh
+
+    plain, _ = train_surrogate(X, y, hidden=(8,), epochs=5, device="cpu")
+    cpu_mesh = scenario_mesh(1, device="cpu")
+    for kw in ({}, {"device": "cpu"}):
+        meshed, _ = train_surrogate(X, y, hidden=(8,), epochs=5, mesh=cpu_mesh, **kw)
+        for a, b in zip(plain.model.state_dict().values(), meshed.model.state_dict().values()):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="not the mesh's device"):
+        train_surrogate(X, y, epochs=1, mesh=cpu_mesh, device="cuda")
+    two = DeviceMesh([torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="trains on one"):
+        train_surrogate(X, y, epochs=1, mesh=two, device="cpu")
 
 
 def _write_csv(path, labels, mat, header=True):

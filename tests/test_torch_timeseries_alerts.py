@@ -146,6 +146,9 @@ def test_exporter_query_and_alerts_routes():
     status, _, body = ex.handle_path("/alerts")
     assert status == 200 and json.loads(body)["firing"][0]["rule"] == "deep"
     assert ex.handle_path("/lanes")[0] == 200
-    assert ex.handle_path("/capacity")[0] == 501
-    with pytest.raises(NotImplementedError, match="A7"):
-        TelemetryExporter(0, capacity_fn=dict)
+    # /capacity: 404 until a capacity plane is attached, then its report
+    assert ex.handle_path("/capacity")[0] == 404
+    ex = TelemetryExporter(0, registry=reg, capacity_fn=lambda: {"config": {"shards": 1}})
+    status, ctype, body = ex.handle_path("/capacity")
+    assert (status, ctype) == (200, "application/json")
+    assert json.loads(body) == {"config": {"shards": 1}}

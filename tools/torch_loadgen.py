@@ -35,9 +35,20 @@ it reaches is quarantined as ``poisoned``. Exit 2 on an error.
 
 ``--warm-model PATH`` serves through the learned warm start (an artifact
 from tools/torch_train_warmstart.py); the report then carries the
-accept / iterations-saved counter deltas. The JAX tool's ``--ramp`` /
-``--capacity`` (ROADMAP A7) and their self-check legs wait for the
-capacity plane: the options raise NotImplementedError.
+accept / iterations-saved counter deltas.
+
+``--ramp LO:HI:STEPS`` sweeps the offered rate in equal steps over ONE
+service (or fleet) and reports goodput / p50 / p95 / shed per step: the
+measured saturation curve `tools/torch_capacity_plan.py --self-check`
+gates the fleet twin's knee against. ``--capacity`` attaches the capacity
+observatory (`obs/capacity.py`), so each row also carries its forced
+reading (desired shards, knee, model error, Little's-law residual) and
+the report its final ``/capacity`` payload. The self-check's fleet leg
+runs with the time-series store on (``/query`` and ``/alerts`` gated) and
+its capacity leg ramps a service with the observatory (estimate ok, knee
+and recommendation finite, ``/capacity`` answering).
+
+    python tools/torch_loadgen.py --ramp 20:200:6 --capacity --requests 60
 
 The workload is synthetic: small random feasible box LPs with a duplicate
 fraction (``--dup-frac``), so the fingerprint cache sees repeats.
@@ -290,6 +301,122 @@ def run_service(
     return report
 
 
+def capacity_snapshot(svc):
+    """The capacity observatory's report, or None with the plane off (a
+    fleet through its lock-holding `capacity_report`)."""
+    fn = getattr(svc, "capacity_report", None)
+    if fn is not None:
+        return fn() or None
+    cap = getattr(svc, "capacity", None)
+    return cap.report() if cap is not None else None
+
+
+def run_ramp(
+    lo: float,
+    hi: float,
+    steps: int,
+    requests_per_step: int = 60,
+    bucket: int = 8,
+    chunk_iters: int = 8,
+    max_iter: int = 60,
+    queue_limit: int = 256,
+    dup_frac: float = 0.25,
+    seed: int = 0,
+    shards: int = 0,
+    capacity=False,
+    lp_n: int = 8,
+    lp_m: int = 4,
+    deadline_s=None,
+    out=None,
+    device="cuda",
+    problems=None,
+    solver_kw=None,
+) -> dict:
+    """Stepped open-loop rate ramp: LO..HI req/s across `steps` equal steps
+    over ONE service (or fleet) on `device`, so the retained telemetry and
+    the capacity observatory reading it (``capacity=True`` or a mapping of
+    its knobs) span every operating point. Each step offers
+    `requests_per_step` Poisson arrivals at its rate and reports offered,
+    goodput, p50 / p95 and shed for that step alone; with the observatory
+    each row also carries its reading after a forced tick, and the
+    report's ``capacity`` its final report (``service_quantiles`` included:
+    enough to rebuild the twin offline). `problems` (a list of LP rows)
+    replaces the synthetic box LPs: step k offers rows k * n .. k * n + n - 1
+    (cyclically), so steps do not replay each other's fingerprints.
+    `solver_kw` overrides ``max_iter`` with the service's solver options."""
+    from dispatches_tpu_torch.serve import make_dense_fleet, make_dense_service
+
+    if steps < 1 or lo <= 0 or hi < lo:
+        raise ValueError("ramp wants 0 < LO <= HI and STEPS >= 1")
+    rates = [lo + (hi - lo) * i / max(steps - 1, 1) for i in range(steps)]
+    kw = dict(solver_kw) if solver_kw else {"max_iter": max_iter}
+    if shards > 0:
+        svc = make_dense_fleet(shards, bucket, chunk_iters=chunk_iters,
+                               queue_limit=queue_limit, solver_kw=kw, capacity=capacity,
+                               device=device)
+    else:
+        svc = make_dense_service(bucket, chunk_iters=chunk_iters, queue_limit=queue_limit,
+                                 capacity=capacity, device=device, **kw)
+    n = requests_per_step
+
+    def step_problems(k):
+        if problems is not None:
+            return [problems[(k * n + i) % len(problems)] for i in range(n)]
+        # offset the seed pool per step: dup_frac repeats stay within a
+        # step, steps never replay an earlier step's fingerprints
+        seeds = [s + 100_000 * k for s in problem_seeds(n, dup_frac, seed + 101 * k)]
+        pool = {s: make_problem(s, n=lp_n, m=lp_m) for s in set(seeds)}
+        return [pool[s] for s in seeds]
+
+    # the executables' first use outside the measurement window: one
+    # distinct problem a shard (a warm-up at deploy time)
+    warm = (problems[-max(1, shards):] if problems is not None
+            else [make_problem(10**6 + w, n=lp_n, m=lp_m) for w in range(max(1, shards))])
+    for p in warm:
+        svc.submit(p, priority="batch")
+    svc.drain()
+    svc.start()
+    rows = []
+    try:
+        for k, r in enumerate(rates):
+            sched = arrival_schedule(n, r, seed + 101 * k)
+            results, wall, _ = open_loop(
+                svc, step_problems(k), sched, deadline_s=deadline_s,
+                request_ids=[f"ramp{k}_{i}" for i in range(n)],
+            )
+            rep = summarize(results, wall)
+            row = {"step": k, "rate_rps": r, "offered": n, "ok": rep["ok"],
+                   "shed": rep["shed"], "lost": rep["lost"], "wall_s": wall,
+                   "goodput_rps": rep["goodput_rps"], "p50_s": rep["p50_s"],
+                   "p95_s": rep["p95_s"], "p99_s": rep["p99_s"]}
+            cap = getattr(svc, "capacity", None)
+            if cap is not None:
+                # a forced cycle: the row reads THIS step's window
+                cap.tick(force=True)
+                snap = capacity_snapshot(svc) or {}
+                twin = snap.get("twin") or {}
+                row["capacity"] = {
+                    "desired_shards": (snap.get("recommendation") or {}).get("desired_shards"),
+                    "knee_rate_per_sec": (twin.get("knee") or {}).get("knee_rate_per_sec"),
+                    "model_error_ratio": twin.get("model_error_ratio"),
+                    "littles_residual": (snap.get("estimate") or {}).get("littles_residual"),
+                    "time_to_breach_s": (snap.get("forecast") or {}).get("time_to_breach_s"),
+                }
+            rows.append(row)
+            if out is not None:
+                print(f"ramp step {k}: rate={r:.2f}/s goodput={row['goodput_rps']:.2f}/s "
+                      f"p95={(row['p95_s'] or 0.0) * 1e3:.0f}ms shed={row['shed']}", file=out)
+        final_capacity = capacity_snapshot(svc)
+    finally:
+        if shards > 0:
+            svc.close()
+        else:
+            svc.stop()
+    return {"mode": "ramp", "lo_rps": lo, "hi_rps": hi, "steps": steps,
+            "requests_per_step": n, "bucket": bucket, "shards": shards,
+            "device": str(device), "rows": rows, "capacity": final_capacity}
+
+
 def run_serial(
     requests: int = 200,
     rate: float = 200.0,
@@ -471,13 +598,89 @@ def _telemetry_checks(fleet, exporter, before, n_solved, out) -> list:
     return failures
 
 
+def _timeseries_checks(exporter, out) -> list:
+    """The retention plane over the exporter: ``/query`` returns non-empty,
+    aligned windows of the queue-depth and per-shard in-flight gauges the
+    pump sampled, and ``/alerts`` serves the rule pack with the shard_down
+    lifecycle the chaos leg induced."""
+    failures = []
+    for name in ("serve_queue_depth", "serve_shard_inflight"):
+        code, body = http_get(exporter.url(f"/query?name={name}&window=300"))
+        if code != 200:
+            failures.append(f"timeseries: /query?name={name} returned {code}")
+            continue
+        series = json.loads(body).get("series") or []
+        pts = sum(len(s.get("t") or []) for s in series)
+        misaligned = [s["series"] for s in series
+                      if len(s.get("t") or []) != len(s.get("v") or [])]
+        if not pts:
+            failures.append(f"timeseries: /query {name} window is empty")
+        elif misaligned:
+            failures.append(f"timeseries: /query {name} t/v misaligned: {misaligned}")
+        else:
+            print(f"timeseries: /query {name}: {len(series)} series, {pts} aligned points",
+                  file=out)
+    code, body = http_get(exporter.url("/alerts"))
+    if code != 200:
+        failures.append(f"timeseries: /alerts returned {code}")
+    else:
+        rep = json.loads(body)
+        rules = {r.get("name") for r in rep.get("rules") or []}
+        if "shard_down" not in rules:
+            failures.append(f"timeseries: /alerts rule pack lacks shard_down ({rules})")
+        if "shard_down" not in {h.get("rule") for h in rep.get("history") or []}:
+            failures.append("timeseries: /alerts history lacks the shard_down lifecycle")
+    return failures
+
+
+def _capacity_pass(out, device) -> list:
+    """A 3-step ramp over one service with the capacity observatory: zero
+    lost, the estimate ok, the twin's knee and the shard recommendation
+    finite, and ``/capacity`` answering the report through an exporter."""
+    import math
+
+    from dispatches_tpu_torch.obs.exporter import TelemetryExporter
+
+    failures = []
+    rep = run_ramp(50.0, 200.0, 3, requests_per_step=40, bucket=4, chunk_iters=4,
+                   dup_frac=0.0, seed=3, device=device,
+                   capacity={"window": 30.0, "twin_every": 1.0, "eval_every": 0.5},
+                   out=out)
+    lost = sum(r["lost"] + r["offered"] - r["ok"] - r["shed"] for r in rep["rows"])
+    cap = rep["capacity"] or {}
+    est = cap.get("estimate") or {}
+    knee = ((cap.get("twin") or {}).get("knee") or {}).get("knee_rate_per_sec")
+    desired = (cap.get("recommendation") or {}).get("desired_shards")
+    print(f"capacity: knee {knee} req/s, desired shards {desired}, littles residual "
+          f"{est.get('littles_residual')}, model error "
+          f"{(cap.get('twin') or {}).get('model_error_ratio')}", file=out)
+    if lost:
+        failures.append(f"capacity: {lost} ramp requests lost or unsolved")
+    if not est.get("ok"):
+        failures.append("capacity: the estimator window never became ok")
+    if knee is None or not math.isfinite(knee) or knee <= 0:
+        failures.append(f"capacity: no finite knee ({knee})")
+    if desired is None or desired < 1:
+        failures.append(f"capacity: no shard recommendation ({desired})")
+    exporter = TelemetryExporter(0, capacity_fn=lambda: cap).start()
+    try:
+        code, body = http_get(exporter.url("/capacity"))
+    finally:
+        exporter.stop()
+    if code != 200 or json.loads(body).get("config") != cap.get("config"):
+        failures.append(f"capacity: /capacity answered {code}")
+    return failures
+
+
 def _fleet_chaos_pass(out, device) -> list:
     """A 2-shard fleet with one shard SIGKILLed while it holds in-flight
     lanes loses no ticket, respawns the shard, requeues and re-solves the
     killed lanes, flips /healthz to 503 and back, and answers bitwise as
     the single-engine service at the same bucket (a requeued lane
     re-solves from iteration 0). A rate-limited tenant's second request
-    is shed with ``shed_tenant_quota``."""
+    is shed with ``shed_tenant_quota``. The time-series store and the
+    alert pack run on (`_timeseries_checks`), so the bitwise comparison
+    also shows them neutral."""
     import numpy as np
 
     from dispatches_tpu_torch.obs import metrics as obs_metrics
@@ -495,9 +698,10 @@ def _fleet_chaos_pass(out, device) -> list:
         2, bucket, chunk_iters=4, cache_size=None,
         tenants={"limited": TenantConfig(rate=0.001, burst=1.0)},
         solver_kw={"max_iter": 60}, reqtrace=True, telemetry=True,
-        heartbeat_every=0.1, device=device,
+        heartbeat_every=0.1, timeseries=True, device=device,
     )
-    exporter = TelemetryExporter(0, health_fn=fleet.health).start()
+    exporter = TelemetryExporter(0, health_fn=fleet.health, store=fleet.store,
+                                 alerts=fleet.alerts).start()
     results, lost = {}, 0
     try:
         tickets = {s: fleet.submit(problems[s], priority="batch", request_id=f"chaos{s}")
@@ -560,6 +764,7 @@ def _fleet_chaos_pass(out, device) -> list:
         n_solved = sum(r.verdict in HEALTHY for r in results.values()) + (
             t_ok.done() and t_ok.result(0).verdict in HEALTHY)
         failures += _telemetry_checks(fleet, exporter, before, n_solved, out)
+        failures += _timeseries_checks(exporter, out)
     finally:
         exporter.stop()
         fleet.close()
@@ -747,7 +952,11 @@ def self_check(out=sys.stdout, device="cuda") -> int:
                              reqtrace=True, detail=True, device=device)
         latencies = report.pop("latencies_by_id")
         latencies.update(_terminal_mini_pass(out, device))
-        failures = _fleet_chaos_pass(out, device)
+        # the capacity leg before the fleet legs: a fleet's per-shard
+        # in-flight gauges stay in the process registry after it closes,
+        # and the observatory reads them before the service's own lanes
+        failures = _capacity_pass(out, device)
+        failures += _fleet_chaos_pass(out, device)
         failures += _poison_quarantine_pass(out, device)
         tr.event("loadgen_report", **{k: v for k, v in report.items()
                                       if isinstance(v, (int, float))})
@@ -809,8 +1018,12 @@ def main(argv=None) -> int:
                     help="serve /metrics /healthz /slo /snapshot on this port for the "
                     "run (0 = ephemeral; implies --telemetry when --shards > 0)")
     ap.add_argument("--ramp", default=None, metavar="LO:HI:STEPS",
-                    help="not ported yet (ROADMAP A7)")
-    ap.add_argument("--capacity", action="store_true", help="not ported yet (ROADMAP A7)")
+                    help="stepped open-loop rate ramp: LO..HI req/s across STEPS equal "
+                    "steps over one service, per-step rate/goodput/p95 rows "
+                    "(--requests = requests per step)")
+    ap.add_argument("--capacity", action="store_true",
+                    help="attach the capacity observatory to the ramp's service; rows "
+                    "gain its desired-shards/knee/model-error readings")
     ap.add_argument("--warm-model", default=None,
                     help="learned warm-start artifact (.npz) seeding the admitted lanes")
     ap.add_argument("--baseline", choices=["serial"], default=None,
@@ -827,13 +1040,26 @@ def main(argv=None) -> int:
     ap.add_argument("--self-check", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.ramp is not None or args.capacity:
-        raise NotImplementedError("--ramp / --capacity are not ported yet (ROADMAP A7)")
     if args.self_check:
         return self_check(device=args.device)
     if args.kill_shard and args.shards < 2:
         ap.error("--kill-shard needs --shards >= 2 (a 1-shard fleet killed mid-run has "
                  "nowhere to requeue)")
+    if args.ramp is not None:
+        try:
+            lo_s, hi_s, steps_s = args.ramp.split(":")
+            lo, hi, steps = float(lo_s), float(hi_s), int(steps_s)
+        except ValueError:
+            ap.error("--ramp wants LO:HI:STEPS (e.g. 20:200:6)")
+        report = run_ramp(
+            lo, hi, steps, requests_per_step=args.requests, bucket=args.bucket,
+            chunk_iters=args.chunk_iters, max_iter=args.max_iter,
+            queue_limit=args.queue_limit, dup_frac=args.dup_frac, seed=args.seed,
+            shards=args.shards, capacity=args.capacity, deadline_s=args.deadline,
+            device=args.device, out=None if args.json else sys.stderr,
+        )
+        print(json.dumps(report, indent=None if args.json else 2, default=str))
+        return RC_OK
     if args.baseline == "serial":
         report = run_serial(requests=args.requests, rate=args.rate, max_iter=args.max_iter,
                             dup_frac=args.dup_frac, seed=args.seed, device=args.device)
